@@ -1,5 +1,6 @@
-"""The port's search vs the JAX package's on one graph, and the numpy
-carry between the packages (tpuvec_torch.interop).
+"""The port's search vs the JAX package's on one graph, the level-0 loop
+(tpuvec_torch.ops.beam.beam_loop) vs the JAX package's level-0 beam, and
+the numpy carry between the packages (tpuvec_torch.interop).
 
 The graph is built by the port on the CPU (no JAX build in this file) and
 carried into a JAX GraphState; both packages then search it. Ids must be
@@ -23,13 +24,21 @@ import jax.numpy as jnp  # noqa: E402
 
 from tpuvec.index import graph as jax_graph  # noqa: E402
 from tpuvec.index.params import HnswParams as JaxParams  # noqa: E402
+from tpuvec.index.search import beam_search_level0 as jax_beam_search_level0  # noqa: E402
 from tpuvec.index.search import search_graph as jax_search_graph  # noqa: E402
 from tpuvec.types import DistanceMetric as JaxMetric  # noqa: E402
-from tpuvec_torch import interop  # noqa: E402
+from tpuvec_torch import interop, kernels  # noqa: E402
 from tpuvec_torch.index.build import build_graph  # noqa: E402
 from tpuvec_torch.index.graph import config_for, prepare_vectors  # noqa: E402
 from tpuvec_torch.index.params import HnswParams  # noqa: E402
-from tpuvec_torch.index.search import search, search_graph  # noqa: E402
+from tpuvec_torch.index.search import (  # noqa: E402
+    default_max_iters,
+    descend_to_level1,
+    search,
+    search_graph,
+    seed_beam,
+)
+from tpuvec_torch.ops.beam import beam_loop  # noqa: E402
 from tpuvec_torch.types import DistanceMetric  # noqa: E402
 from tpuvec_torch.utils.data import synthetic_embeddings  # noqa: E402
 
@@ -64,6 +73,19 @@ def graph():
     return build_graph(CFG, xp, max_batch=64, device="cpu"), qp
 
 
+def _jax_config():
+    return jax_graph.config_for(D, metric=JaxMetric.COSINE, cap=512, params=JaxParams(**PARAMS))
+
+
+def _loop(state, qp, seeds, *, ef, e, max_iters):
+    """The port's level-0 loop from the seeds, on the graph's tensors."""
+    beam = seed_beam(*seeds, ef=ef, n_expand=e)
+    return beam_loop(
+        qp, state.vectors, state.adj0, *beam,
+        metric=CFG.graph_metric, normalized=CFG.normalized, max_iters=max_iters,
+    )
+
+
 def _jax_state(state):
     return jax_graph.GraphState(
         **{k: jnp.asarray(v) for k, v in interop.state_to_numpy(state).items()}
@@ -83,10 +105,7 @@ def test_config_carries_across():
 
 def test_search_matches_jax_on_the_same_graph(graph):
     state, qp = graph
-    jcfg = jax_graph.config_for(
-        D, metric=JaxMetric.COSINE, cap=512, params=JaxParams(**PARAMS)
-    )
-    d_j, i_j = jax_search_graph(jcfg, _jax_state(state), jnp.asarray(qp.numpy()), k=10, ef=32)
+    d_j, i_j = jax_search_graph(_jax_config(), _jax_state(state), jnp.asarray(qp.numpy()), k=10, ef=32)
     d_t, i_t = search_graph(CFG, state, qp, k=10, ef=32)
     np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-5)
@@ -105,3 +124,87 @@ def test_state_round_trip_is_exact(graph):
         assert back[name].dtype == a.dtype == jarrays[name].dtype, name
         assert back[name].shape == a.shape == jarrays[name].shape, name
         assert np.array_equal(back[name], a) and np.array_equal(jarrays[name], a), name
+
+
+@pytest.mark.parametrize("e,ef", [(1, 32), (2, 64)])
+def test_level0_loop_matches_jax(graph, e, ef):
+    """beam_loop on the CPU vs the JAX package's level-0 beam (rank merge)
+    from the same seeds on the carried graph: W = E * 16."""
+    state, qp = graph
+    seeds = descend_to_level1(CFG, state, qp)
+    max_iters = default_max_iters(ef, e)
+    d_t, i_t, it_t = _loop(state, qp, seeds, ef=ef, e=e, max_iters=max_iters)
+    level0 = jax.jit(
+        jax_beam_search_level0,
+        static_argnames=("config", "ef", "max_iters", "n_expand", "merge"),
+    )
+    d_j, i_j, it_j = level0(
+        _jax_config(), _jax_state(state), jnp.asarray(qp.numpy()),
+        jnp.asarray(seeds[0].numpy()), jnp.asarray(seeds[1].numpy()),
+        ef=ef, max_iters=max_iters, n_expand=e, merge="rank",
+    )
+    assert d_t.shape == (NQ, ef)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-5)
+    assert it_t == int(it_j)
+
+
+@pytest.mark.parametrize("max_iters", [None, 3])
+def test_level0_loop_per_query_equals_batch(graph, max_iters):
+    """What the kernel's one-block-per-query loop rests on: a batch run in
+    lock step gives each query the beam it gets when run alone. Ids are
+    identical; distances agree within atol 1e-6."""
+    state, qp = graph
+    seed_i, seed_d = descend_to_level1(CFG, state, qp)
+    max_iters = default_max_iters(64, 2) if max_iters is None else max_iters
+
+    def run(sl):
+        return _loop(state, qp[sl], (seed_i[sl], seed_d[sl]), ef=64, e=2, max_iters=max_iters)
+
+    d_b, i_b, it_b = run(slice(None))
+    alone = [run(slice(k, k + 1)) for k in range(NQ)]
+    assert torch.equal(i_b, torch.cat([a[1] for a in alone]))
+    # the CPU's bmm sums in another order at batch 1: float32 rounding only
+    torch.testing.assert_close(d_b, torch.cat([a[0] for a in alone]), rtol=0, atol=1e-6)
+    assert it_b == max(a[2] for a in alone)
+
+
+def test_level0_loop_wrapper_checks(graph, monkeypatch):
+    """On CPU tensors beam_loop runs the plain loop and never loads a
+    kernel; metric forms the kernel lacks raise NotImplementedError; wrong
+    dtypes, shapes and layouts raise ValueError."""
+
+    def no_kernel(name):
+        raise AssertionError(f"a CPU tensor reached the kernel loader ({name})")
+
+    monkeypatch.setattr(kernels, "load", no_kernel)
+    state, qp = graph
+    beam = seed_beam(*descend_to_level1(CFG, state, qp), ef=32, n_expand=1)
+    kw = dict(metric=CFG.graph_metric, normalized=CFG.normalized, max_iters=4)
+    d, i, it = beam_loop(qp, state.vectors, state.adj0, *beam, **kw)
+    assert d.shape == i.shape == (NQ, 32) and 1 <= it <= 4
+
+    with pytest.raises(NotImplementedError, match="Hamming"):
+        beam_loop(qp, state.vectors, state.adj0, *beam,
+                  metric=DistanceMetric.HAMMING, normalized=False, max_iters=4)
+    with pytest.raises(NotImplementedError, match="int8"):
+        beam_loop(qp.to(torch.int8), state.vectors.to(torch.int8), state.adj0, *beam, **kw)
+
+    beam_d, beam_i, beam_x, cand, active = beam
+    bad = [
+        (qp.double(), state.vectors, state.adj0, *beam),
+        (qp[:, :16].contiguous(), state.vectors, state.adj0, *beam),
+        (qp, state.vectors, state.adj0.long(), *beam),
+        (qp, state.vectors[:100], state.adj0, *beam),
+        (qp, state.vectors, state.adj0, beam_d[:, :24].contiguous(), beam_i[:, :24].contiguous(),
+         beam_x[:, :24].contiguous(), cand, active),
+        (qp, state.vectors, state.adj0, beam_d, beam_i, beam_x.int(), cand, active),
+        (qp, state.vectors, state.adj0, beam_d, beam_i, beam_x, cand[:, 0], active),
+        (qp, state.vectors, state.adj0, beam_d, beam_i, beam_x, cand, active[:8]),
+        (qp, state.vectors, state.adj0, beam_d.t().contiguous().t(), beam_i, beam_x, cand, active),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            beam_loop(*args, **kw)
+    with pytest.raises(ValueError, match="max_iters"):
+        beam_loop(qp, state.vectors, state.adj0, *beam, **{**kw, "max_iters": -1})

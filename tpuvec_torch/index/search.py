@@ -1,15 +1,15 @@
 """Batched HNSW search: greedy upper-level descent + level-0 beam.
 
-A whole batch of queries advances in lock step:
+A whole batch of queries advances in lock step through the descent:
 
 * the candidate and result heaps are one fixed-width sorted beam
   [B, EF] (EF = next power of two of ef);
 * there is no visited set: the beam only ever improves, so an evicted node
   can never re-qualify, and membership in the current beam is a complete
   visited test;
-* each iteration gathers the frontier's adjacency rows and their vectors,
-  computes their distances in torch, and hands them to ``beam_update``
-  (dedup + merge + next frontier: one CUDA kernel launch on the card).
+* the level-0 loop (adjacency gather, vector gather, distance, dedup +
+  merge + next frontier) is ``ops/beam.py:beam_loop``: one CUDA kernel
+  launch per batch on the card, each query in its own block.
 
 ``n_expand`` (E) expands the E best unexpanded candidates per iteration.
 """
@@ -19,21 +19,15 @@ from __future__ import annotations
 import torch
 
 from tpuvec_torch.index.graph import GraphState, HnswConfig
-from tpuvec_torch.ops.beam import beam_update, frontier
-from tpuvec_torch.ops.distance import gathered_internal, internal_to_output
+from tpuvec_torch.ops.beam import beam_loop, frontier, node_dist
+from tpuvec_torch.ops.distance import internal_to_output
 
 __all__ = [
     "search_graph", "search", "descend_to_level1", "beam_search_level0",
-    "default_max_iters",
+    "seed_beam", "default_max_iters",
 ]
 
 _INF = float("inf")
-
-# The level-0 loop reads `active.any()` back to the host only every this
-# many iterations. Iterating past the point where every query went
-# inactive changes nothing (an inactive query's update is a fixed point,
-# see ops/beam.py), so the result equals a loop that checks every time.
-_ACTIVE_CHECK_EVERY = 8
 
 
 def _next_pow2(x: int) -> int:
@@ -42,9 +36,7 @@ def _next_pow2(x: int) -> int:
 
 def _node_dist(config: HnswConfig, state: GraphState, q: torch.Tensor, ids: torch.Tensor):
     """Internal distance q[b] -> node ids[b, M]; invalid ids -> inf."""
-    vecs = state.vectors[ids.clamp_min(0)]  # clamp: ids may be -1
-    d = gathered_internal(config.graph_metric, q, vecs, normalized=config.normalized)
-    return torch.where(ids >= 0, d, _INF)
+    return node_dist(config.graph_metric, config.normalized, state.vectors, q, ids)
 
 
 def descend_to_level1(
@@ -96,38 +88,33 @@ def beam_search_level0(
 
     q [B, Dp]; seed_ids/seed_dists [B] from the descent. Returns
     (beam_d [B, EF] ascending, beam_i [B, EF], iters) in internal
-    distance, with EF = next_pow2(ef); iters counts the iterations run.
+    distance, with EF = next_pow2(ef); iters is the most iterations any
+    query ran while active.
     """
-    b = q.shape[0]
-    e = n_expand
-    w = e * config.max_m0
-    efp = _next_pow2(ef)
-    dev = q.device
+    beam = seed_beam(seed_ids, seed_dists, ef=ef, n_expand=n_expand)
+    return beam_loop(
+        q.contiguous(), state.vectors, state.adj0, *beam,
+        metric=config.graph_metric, normalized=config.normalized, max_iters=max_iters,
+    )
 
+
+def seed_beam(seed_ids: torch.Tensor, seed_dists: torch.Tensor, *, ef: int, n_expand: int):
+    """The level-0 beam before its first iteration: the seed in slot 0 and
+    +inf padding (marked expanded), with the first frontier selected and
+    marked. Returns (beam_d, beam_i, beam_x [B, EF], cand [B, E], active [B]),
+    the state ``beam_loop`` starts from."""
+    b = seed_ids.shape[0]
+    efp = _next_pow2(ef)
+    dev = seed_ids.device
     beam_d = torch.full((b, efp), _INF, dtype=torch.float32, device=dev)
     beam_i = torch.full((b, efp), -1, dtype=torch.int32, device=dev)
     beam_x = torch.ones((b, efp), dtype=torch.bool, device=dev)  # padding = expanded
     beam_d[:, 0] = torch.where(seed_ids >= 0, seed_dists, _INF)
     beam_i[:, 0] = seed_ids
     beam_x[:, 0] = seed_ids < 0
-
-    sel, cand, active = frontier(beam_d, beam_i, beam_x, e)
+    sel, cand, active = frontier(beam_d, beam_i, beam_x, n_expand)
     beam_x |= sel
-    it = 0
-    if not bool(active.any()):
-        return beam_d, beam_i, it
-    while it < max_iters:
-        ok = (cand >= 0) & active[:, None]
-        nbrs = state.adj0[cand.clamp_min(0)]  # [B, E, M0]
-        nbrs = torch.where(ok[:, :, None], nbrs, -1).reshape(b, w)
-        nd = _node_dist(config, state, q, nbrs)
-        beam_d, beam_i, beam_x, cand, active = beam_update(
-            beam_d, beam_i, beam_x, nbrs, nd, n_expand=e
-        )
-        it += 1
-        if it % _ACTIVE_CHECK_EVERY == 0 and not bool(active.any()):
-            break
-    return beam_d, beam_i, it
+    return beam_d, beam_i, beam_x, cand, active
 
 
 def default_max_iters(ef: int, n_expand: int) -> int:

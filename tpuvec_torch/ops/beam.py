@@ -1,11 +1,16 @@
-"""One level-0 beam-search iteration: dedup, merge and next frontier.
+"""The level-0 beam: one iteration (dedup, merge, next frontier) and the
+whole loop.
 
 ``beam_update`` is the port of the JAX package's Pallas kernel
-(``tpuvec/ops/pallas_beam.py:beam_update``). On a CUDA tensor it launches
-the hand-written kernel in ``tpuvec_torch/csrc/beam_update.cu``; on a CPU
-tensor it runs ``beam_update_plain``, the same function in plain torch.
+(``tpuvec/ops/pallas_beam.py:beam_update``); ``beam_loop`` runs the whole
+level-0 loop around it (``tpuvec/index/search.py:336-357``: adjacency
+gather, vector gather, distance, update). On a CUDA tensor each launches
+its hand-written kernel in ``tpuvec_torch/csrc/beam_update.cu``; on a CPU
+tensor each runs its plain torch version (``beam_update_plain``,
+``beam_loop_plain``).
 
-Contract (B queries, EF a power of two, W window entries, E = n_expand):
+Contract of one iteration (B queries, EF a power of two, W window
+entries, E = n_expand):
 
   in:  beam_d f32[B, EF] sorted ascending, beam_i i32[B, EF],
        beam_x bool[B, EF] (expanded), nbrs i32[B, W] gathered neighbor
@@ -20,15 +25,33 @@ not equal to an earlier window entry; the rest enter as (+inf, -1).
 unexpanded slots, selected only when the best unexpanded distance is no
 worse than the beam's last entry (``active``). An inactive query's update
 is a fixed point: its window is all -1, so its beam is unchanged.
+
+The loop repeats the iteration with the window of the frontier's
+adjacency rows (``adj0[cand]``, W = E * M0) and their internal distances
+to the query, until every query is inactive or ``max_iters`` iterations
+have run. Since an inactive query's update is a fixed point, the kernel
+runs each query on its own (one block each) and gives the same beams.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["beam_update", "beam_update_plain", "frontier"]
+from tpuvec_torch.ops.distance import gathered_internal
+from tpuvec_torch.types import DistanceMetric
+
+__all__ = [
+    "beam_update", "beam_update_plain", "beam_loop", "beam_loop_plain",
+    "frontier", "node_dist",
+]
 
 _INF = float("inf")
+
+# The plain loop reads `active.any()` back to the host only every this many
+# iterations. Iterating past the point where every query went inactive
+# changes nothing (an inactive query's update is a fixed point), so the
+# result equals a loop that checks every time.
+_ACTIVE_CHECK_EVERY = 8
 
 
 def frontier(sd: torch.Tensor, si: torch.Tensor, sx: torch.Tensor, n_expand: int):
@@ -72,29 +95,54 @@ def beam_update_plain(beam_d, beam_i, beam_x, nbrs, nd, *, n_expand=1):
     return sd, si, sx | sel, cand, active
 
 
+def _dims(t: torch.Tensor, ndim: int) -> tuple:
+    return tuple(t.shape) if t.dim() == ndim else (-1,) * ndim
+
+
+def _expect(fn: str, device: torch.device, want) -> None:
+    """Raise ValueError unless every (tensor, dtype, shape) matches and lies
+    contiguous on ``device``."""
+    for t, dtype, shape in want:
+        if t.device != device:
+            raise ValueError(f"{fn}: all tensors must be on one device")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{fn}: expected {dtype}{list(shape)}, got {t.dtype}{list(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: tensors must be contiguous")
+
+
+def _check_beam(fn, efp, w, n_expand):
+    if efp < 1 or efp & (efp - 1) or not (1 <= n_expand <= min(efp, 64)) or w < 1:
+        raise ValueError(f"{fn}: bad shape EF={efp}, W={w}, E={n_expand}")
+    if efp + w > 2048:  # the kernels' shared memory holds EF + W entries
+        raise ValueError(f"{fn}: EF + W = {efp + w} exceeds 2048")
+
+
 def _check(beam_d, beam_i, beam_x, nbrs, nd, n_expand):
-    b, efp = beam_d.shape
-    w = nbrs.shape[1] if nbrs.dim() == 2 else -1
-    want = [
+    b, efp = _dims(beam_d, 2)
+    w = _dims(nbrs, 2)[1]
+    _expect("beam_update", beam_d.device, [
         (beam_d, torch.float32, (b, efp)),
         (beam_i, torch.int32, (b, efp)),
         (beam_x, torch.bool, (b, efp)),
         (nbrs, torch.int32, (b, w)),
         (nd, torch.float32, (b, w)),
-    ]
-    for t, dtype, shape in want:
-        if t.device != beam_d.device:
-            raise ValueError("beam_update: all tensors must be on one device")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"beam_update: expected {dtype}{list(shape)}, got {t.dtype}{list(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError("beam_update: tensors must be contiguous")
-    if efp & (efp - 1) or not (1 <= n_expand <= min(efp, 64)) or w < 1:
-        raise ValueError(f"beam_update: bad shape EF={efp}, W={w}, E={n_expand}")
-    if efp + w > 2048:  # the kernel's shared memory holds EF + W entries
-        raise ValueError(f"beam_update: EF + W = {efp + w} exceeds 2048")
+    ])
+    _check_beam("beam_update", efp, w, n_expand)
+
+
+# A launcher's return code when a block would need more shared memory than
+# the card gives (kSmemTooLarge in csrc/beam_update.cu).
+_SMEM_TOO_LARGE = -1
+
+
+def _raise_for(fn, kernels, lib, rc):
+    if rc == _SMEM_TOO_LARGE:
+        raise ValueError(f"{fn}: a block needs more shared memory than the card gives")
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: {kernels.error_string(lib, rc)}")
 
 
 def beam_update(beam_d, beam_i, beam_x, nbrs, nd, *, n_expand=1):
@@ -125,10 +173,129 @@ def beam_update(beam_d, beam_i, beam_x, nbrs, nd, *, n_expand=1):
             cand.data_ptr(), active.data_ptr(),
             b, efp, w, n_expand, stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"beam_update kernel launch failed: {kernels.error_string(lib, rc)}")
+    _raise_for("beam_update", kernels, lib, rc)
     beam_update.launches += 1
     return out_d, out_i, out_x, cand, active
 
 
 beam_update.launches = 0
+
+
+def node_dist(metric, normalized, vectors, q, ids):
+    """Internal distance q[b] -> vectors[ids[b, m]] [B, M]; ids < 0 -> inf."""
+    vecs = vectors[ids.clamp_min(0)]  # clamp: ids may be -1
+    d = gathered_internal(metric, q, vecs, normalized=normalized)
+    return torch.where(ids >= 0, d, _INF)
+
+
+def beam_loop_plain(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
+                    metric, normalized, max_iters):
+    """Plain torch form of ``beam_loop``: the whole batch in lock step, one
+    ``beam_update_plain`` per iteration."""
+    b, e = cand.shape
+    w = e * adj0.shape[1]
+    count = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    for it in range(max_iters):
+        if it % _ACTIVE_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        count += active
+        ok = (cand >= 0) & active[:, None]
+        nbrs = adj0[cand.clamp_min(0)]  # [B, E, M0]
+        nbrs = torch.where(ok[:, :, None], nbrs, -1).reshape(b, w)
+        nd = node_dist(metric, normalized, vectors, q, nbrs)
+        beam_d, beam_i, beam_x, cand, active = beam_update_plain(
+            beam_d, beam_i, beam_x, nbrs, nd, n_expand=e
+        )
+    return beam_d, beam_i, int(count.max()) if b else 0
+
+
+def _metric_form(metric: DistanceMetric, normalized: bool) -> int:
+    """The kernel's distance form: 0 = squared L2 (L2, normalized cosine),
+    1 = L1, 2 = cosine 1 - sim."""
+    if metric is DistanceMetric.L2 or (metric is DistanceMetric.COSINE and normalized):
+        return 0
+    if metric is DistanceMetric.L1:
+        return 1
+    if metric is DistanceMetric.COSINE:
+        return 2
+    if metric is DistanceMetric.HAMMING:
+        raise NotImplementedError("Hamming distances are not ported yet")
+    raise ValueError(f"unsupported metric {metric}")
+
+
+def _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, metric,
+                normalized, max_iters):
+    form = _metric_form(metric, normalized)
+    for t in (q, vectors):
+        if not t.is_floating_point():
+            raise NotImplementedError(
+                f"{t.dtype} distances (int8 / packed bits) are not ported yet"
+            )
+    b, efp = _dims(beam_d, 2)
+    dp = _dims(q, 2)[1]
+    cap, m0 = _dims(adj0, 2)
+    e = _dims(cand, 2)[1]
+    _expect("beam_loop", beam_d.device, [
+        (q, torch.float32, (b, dp)),
+        (vectors, torch.float32, (cap, dp)),
+        (adj0, torch.int32, (cap, m0)),
+        (beam_d, torch.float32, (b, efp)),
+        (beam_i, torch.int32, (b, efp)),
+        (beam_x, torch.bool, (b, efp)),
+        (cand, torch.int32, (b, e)),
+        (active, torch.bool, (b,)),
+    ])
+    _check_beam("beam_loop", efp, e * m0, e)
+    if dp < 4 or dp % 4:  # the kernel reads rows as float4
+        raise ValueError(f"beam_loop: row width {dp} is not a multiple of 4")
+    if max_iters < 0:
+        raise ValueError(f"beam_loop: max_iters = {max_iters} < 0")
+    return form
+
+
+def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
+              metric: DistanceMetric, normalized: bool, max_iters: int):
+    """The level-0 loop from a seeded beam and its first frontier.
+
+    q f32[B, Dp] prepared queries; vectors f32[cap, Dp] and adj0 i32[cap, M0]
+    the graph's; beam_d/beam_i/beam_x [B, EF] the beam with the frontier
+    already marked expanded; cand i32[B, E] and active bool[B] that frontier.
+    Returns (beam_d [B, EF], beam_i [B, EF], iters): iters is the most
+    iterations any query ran while active. CPU tensors run the plain
+    version; CUDA tensors launch the kernel (one block per query), or raise.
+    """
+    form = _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active,
+                       metric, normalized, max_iters)
+    dev = beam_d.device
+    if dev.type == "cpu":
+        return beam_loop_plain(
+            q, vectors, adj0, beam_d, beam_i, beam_x, cand, active,
+            metric=metric, normalized=normalized, max_iters=max_iters,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"beam_loop: unsupported device {dev}")
+    from tpuvec_torch import kernels
+
+    lib = kernels.load("beam_update")
+    b, efp = beam_d.shape
+    m0 = adj0.shape[1]
+    e = cand.shape[1]
+    dp = q.shape[1]
+    out_d = torch.empty_like(beam_d)
+    out_i = torch.empty_like(beam_i)
+    iters = torch.empty((b,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tpuvec_beam_search_level0(
+            q.data_ptr(), vectors.data_ptr(), adj0.data_ptr(),
+            beam_d.data_ptr(), beam_i.data_ptr(), beam_x.data_ptr(),
+            cand.data_ptr(), active.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), iters.data_ptr(),
+            b, efp, m0, e, dp, form, max_iters, stream,
+        )
+    _raise_for(f"beam_loop (EF={efp}, W={e * m0}, Dp={dp})", kernels, lib, rc)
+    beam_loop.launches += 1
+    return out_d, out_i, int(iters.max()) if b else 0
+
+
+beam_loop.launches = 0
