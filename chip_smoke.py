@@ -30,7 +30,27 @@ Phases, one line each; any failure exits non-zero:
 5. trace: a separate traced run, for where the time goes: the build with
    a synchronised timer per insert stage and around the candidates stage's
    descent and level-0 loop, one search batch split the same way, and one
-   search batch under torch.profiler.
+   search batch under torch.profiler;
+6. quantized: BASELINE configs 3 and 4 at 100K x 1024 (--n sets the rows;
+   the sources run 1M): config 3 is INT8 cosine with an f32 rerank, data
+   and sweep as scripts/bench_suite.py:config_3 draws them; config 4 is
+   BINARY (Hamming) with an int8 shadow, rerank and one-hop expansion, data
+   and sweep as scripts/probe_10m_binary.py draws them. Both with m=16,
+   max_m0=32, ef_construction=200, built with max_batch=1024 and searched
+   in batches of 256; recall@10 against the exact f32 cosine scan of the
+   originals and QPS at every point, the build rate, and the split of one
+   batch into descent, level-0 loop and rerank (phase 5's timers). The
+   loop kernel's int8 form must launch in config 3's build and search, its
+   word form in config 4's;
+3c. quantized loop forms, on phase 6's graphs: beam_loop against
+   beam_loop_plain at the search shape (256 queries, EF=64, E=1) and the
+   construction shape (1024 held-out rows, EF=256, E=2, the build's
+   iteration budget): int8 squared L2 (config 3's form), int8 L1 and
+   Hamming (config 4's form) exactly equal in ids, distances and
+   iterations (integer distances, the same stable merge); int8 raw cosine
+   within 1e-6 in distance with ids equal wherever slots are more than 1e-6
+   apart; each form's device time per launch beside its bound and the
+   plain loop's time.
 
 The last two lines are a JSON line with every kernel's numbers and the
 JSON line {"ok": true, "device": {...}}.
@@ -46,12 +66,17 @@ import time
 
 import numpy as np
 
-# HBM rate and non-tensor-core float32 rate of one H100 SXM (data sheet)
+# HBM rate, non-tensor-core float32 rate and int8 rate of one H100 SXM
+# (data sheet)
 _HBM_BYTES_PER_S = 3.35e12
 _F32_OPS_PER_S = 67e12
+_INT8_OPS_PER_S = 1979e12
 
 # BASELINE.md config 2 (100K x 768 cosine, k=10); queries as bench.py draws them
 N, D, NQ, REPS, K = 100_000, 768, 256, 5, 10
+# BASELINE.md configs 3 and 4 (1024 dims; the sources run 1M and 10M rows)
+QD = 1024
+GEN_CHUNK = 250_000  # scripts/probe_10m_binary.py's rows per seeded chunk
 
 
 def _log(msg: str) -> None:
@@ -207,6 +232,7 @@ def run_main_path(torch, device, n):
     wrappers = {"beam_update": beam_update, "beam_search_level0": beam_loop}
     for fn in wrappers.values():
         fn.launches = 0
+    beam_loop.form_launches = dict.fromkeys(beam_loop.form_launches, 0)
     t0 = time.time()
     state = build_graph(cfg, xp, max_batch=1024, device=device)
     torch.cuda.synchronize()
@@ -254,6 +280,7 @@ def run_main_path(torch, device, n):
         sweep.append(dict(ef=ef, recall=float(recall), ms_per_batch=dt * 1e3, qps=nq / dt))
         _log(f"main: ef={ef} recall@10={recall:.4f} {dt * 1e3:.2f} ms/batch {nq / dt:.0f} QPS")
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches["f32"] = beam_loop.form_launches["f32"]
     search_launches = {name: launches[name] - build_launches[name] for name in wrappers}
     best = max((s for s in sweep if s["recall"] >= 0.95), key=lambda s: s["qps"], default=None)
     if best is None:
@@ -308,35 +335,43 @@ def _loop_bound(torch, args, fresh, adj, outs):
     launch: the distinct vector and adjacency rows the batch's loop reads,
     each once, plus q, the beam and frontier in and the outputs, against the
     HBM rate; two multiply-adds per element of every fresh row against the
-    float32 rate."""
+    float32 rate (int8 rows: the int8 rate; words: three operations a word
+    at the float32 rate)."""
     q, vectors, adj0 = args[:3]
     row_v = vectors.shape[1] * vectors.element_size()
     row_a = adj0.shape[1] * adj0.element_size()
     small = sum(t.numel() * t.element_size() for t in (q, *args[3:], *outs))
     distinct = torch.unique(fresh).numel() * row_v + torch.unique(adj).numel() * row_a + small
     per_visit = fresh.numel() * row_v + adj.numel() * row_a + small
-    ops = fresh.numel() * 4 * vectors.shape[1]
-    t_bytes, t_ops = distinct / _HBM_BYTES_PER_S * 1e3, ops / _F32_OPS_PER_S * 1e3
+    if vectors.dtype == torch.int8:  # two multiply-adds an element, int8 rate
+        per_elem, rate = 4, _INT8_OPS_PER_S
+    elif vectors.dtype == torch.int32:  # xor, popcount, add a word
+        per_elem, rate = 3, _F32_OPS_PER_S
+    else:  # two multiply-adds an element, float32 rate
+        per_elem, rate = 4, _F32_OPS_PER_S
+    ops = fresh.numel() * per_elem * vectors.shape[1]
+    t_bytes, t_ops = distinct / _HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return (*bound, distinct, per_visit)
 
 
-def _check_one_iteration(torch, label, kd, ki, pd, pi) -> float:
-    """Kernel vs plain after one iteration: the same +inf slots, distances
-    within 1e-5, ids equal wherever a slot's distance is more than 1e-5
-    from its neighbours'. Returns the largest distance error."""
+def _check_one_iteration(torch, label, kd, ki, pd, pi, tol=1e-5, when="after 1 iteration") -> float:
+    """Kernel vs plain (by default after one iteration): the same +inf
+    slots, distances within ``tol``, ids equal wherever a slot's distance is
+    more than ``tol`` from its neighbours'. Returns the largest distance
+    error."""
     fin = torch.isfinite(pd)
     if not torch.equal(fin, torch.isfinite(kd)):
-        raise AssertionError(f"beam_loop {label}: +inf slots differ from plain after 1 iteration")
+        raise AssertionError(f"beam_loop {label}: +inf slots differ from plain {when}")
     err = float((kd - pd)[fin].abs().max()) if fin.any() else 0.0
-    if err > 1e-5:
-        raise AssertionError(f"beam_loop {label}: distance error {err} > 1e-5 after 1 iteration")
+    if err > tol:
+        raise AssertionError(f"beam_loop {label}: distance error {err} > {tol:g} {when}")
     gap = torch.nan_to_num(torch.diff(pd, dim=1), nan=math.inf)  # +inf - +inf: padding
     edge = torch.full_like(pd[:, :1], math.inf)
-    apart = (torch.cat([edge, gap], 1) > 1e-5) & (torch.cat([gap, edge], 1) > 1e-5)
+    apart = (torch.cat([edge, gap], 1) > tol) & (torch.cat([gap, edge], 1) > tol)
     bad = int(((ki != pi) & apart).sum())
     if bad:
-        raise AssertionError(f"beam_loop {label}: {bad} separated slots hold other ids than plain")
+        raise AssertionError(f"beam_loop {label}: {bad} separated slots hold other ids than plain {when}")
     return err
 
 
@@ -528,6 +563,259 @@ def trace_main_path(torch, device, run):
     )
 
 
+def _config3_data(n):
+    """Config 3's corpus and queries as scripts/bench_suite.py:config_3
+    draws them: one call, the queries after the corpus."""
+    from tpuvec_torch.utils.data import synthetic_embeddings
+
+    data = synthetic_embeddings(n + NQ * (REPS + 1), QD, n_clusters=1024, seed=3)
+    return data[:n], data[n:].copy()
+
+
+def _config4_data(n):
+    """Config 4's corpus and queries as scripts/probe_10m_binary.py draws
+    them: the corpus in seeded chunks of GEN_CHUNK rows on one manifold
+    (structure_seed 77), the queries from the first rows of the chunk after
+    the corpus (at n <= GEN_CHUNK the probe's own query draw would reuse the
+    corpus's seed, so the next chunk's seed is taken)."""
+    from tpuvec_torch.utils.data import synthetic_embeddings
+
+    kw = dict(n_clusters=1024, structure_seed=77)
+    corpus = np.concatenate([
+        synthetic_embeddings(min(GEN_CHUNK, n - s), QD, seed=10_000 + s // GEN_CHUNK, **kw)
+        for s in range(0, n, GEN_CHUNK)
+    ])
+    queries = synthetic_embeddings(GEN_CHUNK, QD, seed=10_000 + -(-n // GEN_CHUNK), **kw)
+    return corpus, queries[: NQ * (REPS + 1)]
+
+
+def _sweep_point(torch, label, fn, reps_in, gt, n):
+    """Run ``fn(prepared queries, f32 queries)`` on the first query batch
+    (scored) and time it over the other batches; checks the output's shape,
+    ids and ascending finite distances. Returns (recall@10, QPS)."""
+    d0, i0 = fn(*reps_in[0])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for ri in reps_in[1:]:
+        fn(*ri)
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / (len(reps_in) - 1)
+    dh, ih = d0.cpu().numpy(), i0.cpu().numpy()
+    if dh.shape != (NQ, K) or not np.isfinite(dh).all() or (ih < 0).any() or (ih >= n).any():
+        raise AssertionError(f"quantized: {label}: output malformed")
+    if (np.diff(dh, axis=1) < 0).any():
+        raise AssertionError(f"quantized: {label}: distances not ascending")
+    recall = _recall(ih, gt)
+    _log(f"quantized: {label}: recall@10={recall:.4f} {dt * 1e3:.2f} ms/batch {NQ / dt:.0f} QPS")
+    return recall, NQ / dt
+
+
+def _split_batch(torch, label, cfg, state, reps_in, ef, max_iters, c, rerank):
+    """Phase 5's timers on quantized search batches: descent, level-0 loop
+    and rerank, each behind a synchronised timer (mean over the timed
+    batches)."""
+    from tpuvec_torch.index import search
+
+    spent, reps = {"rerank": 0.0}, len(reps_in) - 1
+    originals = _timers(torch, search, ["descend_to_level1", "beam_search_level0"], spent)
+    try:
+        t = time.perf_counter()
+        for qq, qqf in reps_in[1:]:
+            _, ii = search.search_graph(cfg, state, qq, k=c, ef=ef, max_iters=max_iters)
+            torch.cuda.synchronize()
+            t_r = time.perf_counter()
+            rerank(ii, qqf)
+            torch.cuda.synchronize()
+            spent["rerank"] += time.perf_counter() - t_r
+        total = (time.perf_counter() - t) / reps
+    finally:
+        _restore(search, originals)
+    _log(f"trace: {label}: {total * 1e3:.2f} ms a batch with timers = descent "
+         f"{spent['descend_to_level1'] / reps * 1e3:.2f} ms + level-0 loop "
+         f"{spent['beam_search_level0'] / reps * 1e3:.2f} ms + rerank "
+         f"{spent['rerank'] / reps * 1e3:.2f} ms (mean of {reps})")
+
+
+def run_quantized(torch, device, n):
+    """Phase 6: BASELINE configs 3 (INT8 + f32 rerank) and 4 (BINARY +
+    int8-shadow rerank and expansion) at n x 1024: build, exact f32 oracle,
+    sweep, the int8 / word loop forms' launches, and one batch split.
+    Returns per form the graph and queries phase 3c runs on, and the form's
+    launches."""
+    from tpuvec_torch.index.bruteforce import bruteforce_knn
+    from tpuvec_torch.index.build import build_graph
+    from tpuvec_torch.index.graph import config_for, prepare_vectors
+    from tpuvec_torch.index.params import HnswParams
+    from tpuvec_torch.index.search import search_graph
+    from tpuvec_torch.ops.beam import beam_loop, beam_update
+    from tpuvec_torch.ops.rerank import expand_rerank_topk, rerank_topk
+    from tpuvec_torch.types import DistanceMetric, IndexQuantization
+
+    _log(f"quantized: {n} rows x {QD} per config, cut from the sources' 1M "
+         f"(config 4's source runs 10M); --n 1000000 runs 1M")
+    params = HnswParams(m=16, max_m0=32, ef_construction=200, ef_search=128)
+    cos = DistanceMetric.COSINE
+    out = {}
+    for name, quant, form in (("config 3", IndexQuantization.INT8, "int8"),
+                              ("config 4", IndexQuantization.BINARY, "words")):
+        t0 = time.time()
+        x, qpool = (_config3_data if quant is IndexQuantization.INT8 else _config4_data)(n)
+        cfg = config_for(QD, metric=cos, quantization=quant, params=params, cap=n)
+        xp = prepare_vectors(cfg, x, device=device)
+        xf = torch.from_numpy(x).to(device)
+        if quant is IndexQuantization.INT8:
+            shadow = xf  # f32 originals
+        else:  # int8, per-row max-abs scale (scripts/probe_10m_binary.py:_quant_int8)
+            scale = torch.clamp_min(xf.abs().amax(dim=1, keepdim=True), 1e-30)
+            shadow = torch.round(xf / scale * 127).to(torch.int8)
+        reps_in = [
+            (prepare_vectors(cfg, qpool[i * NQ : (i + 1) * NQ], device=device),
+             torch.from_numpy(qpool[i * NQ : (i + 1) * NQ]).to(device))
+            for i in range(REPS + 1)
+        ]
+        valid = torch.ones(n, dtype=torch.bool, device=device)
+        gt = bruteforce_knn(reps_in[0][1], xf, valid, metric=cos, k=K)[1].cpu().numpy()
+        torch.cuda.synchronize()
+        _log(f"quantized: {name} ({quant.value}): data, {cfg.store_dtype} rows of "
+             f"{cfg.padded_dim}, shadow {shadow.dtype} and exact f32 oracle ready in "
+             f"{time.time() - t0:.1f}s")
+
+        beam_update.launches = beam_loop.launches = 0
+        beam_loop.form_launches = dict.fromkeys(beam_loop.form_launches, 0)
+        t0 = time.time()
+        state = build_graph(cfg, xp, max_batch=1024, device=device)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        build_launches = dict(beam_loop.form_launches)
+        if int(state.count) != n:
+            raise AssertionError(f"{name}: graph holds {int(state.count)} of {n} vectors")
+        _log(f"quantized: {name}: build {n} vectors in {build_s:.2f}s = {n / build_s:.0f} vec/s, "
+             f"loop kernel launches {build_launches}")
+
+        def coarse(ef, mi):
+            return lambda qq, qqf: search_graph(cfg, state, qq, k=K, ef=ef, max_iters=mi)
+
+        def reranked(ef, mi, c):
+            def fn(qq, qqf):
+                _, ii = search_graph(cfg, state, qq, k=c, ef=ef, max_iters=mi)
+                return rerank_topk(shadow, ii, ii >= 0, qqf, metric=cos, k=K)
+            return fn
+
+        live = torch.arange(cfg.cap, device=device) < n
+
+        def expanded(ef, mi, c):
+            def fn(qq, qqf):
+                _, ii = search_graph(cfg, state, qq, k=c, ef=ef, max_iters=mi)
+                return expand_rerank_topk(shadow, state.adj0, ii, ii >= 0, qqf, metric=cos, k=K,
+                                          filter_mask=live)
+            return fn
+
+        kind = "int8" if form == "int8" else "Hamming"
+        rr = "f32" if form == "int8" else "int8"
+        if form == "int8":
+            points = [(f"coarse {kind} ef={ef} iters={mi}", coarse(ef, mi)) for ef, mi in ((48, 56), (64, 64))]
+        else:
+            points = [(f"coarse {kind} ef={ef} iters={mi}", coarse(ef, mi)) for ef, mi in ((64, 64), (128, None))]
+        points += [(f"{kind} + {rr} rerank ef={ef} iters={mi} C={c}", reranked(ef, mi, c))
+                   for ef, mi, c in ((64, 64, 48), (128, None, 96))]
+        if form == "words":
+            points += [(f"{kind} + 1-hop expand + {rr} rerank ef=64 iters=64 C={c}", expanded(64, 64, c))
+                       for c in (24, 48)]
+        sweep = [(label, *_sweep_point(torch, f"{name}: {label}", fn, reps_in, gt, n))
+                 for label, fn in points]
+        launches = dict(beam_loop.form_launches)
+        search_launches = {f: launches[f] - build_launches[f] for f in launches}
+        if build_launches[form] == 0 or search_launches[form] == 0:
+            raise AssertionError(
+                f"{name}: loop kernel's {form} form launches: build {build_launches}, "
+                f"search {search_launches}"
+            )
+        if beam_update.launches or beam_loop.launches != launches[form]:
+            raise AssertionError(f"{name}: other kernels launched: {launches}, "
+                                 f"beam_update {beam_update.launches}")
+        _log(f"quantized: {name}: loop kernel launches: build {build_launches}, search {search_launches}")
+
+        if form == "int8":
+            _split_batch(torch, f"{name} search + f32 rerank, ef=64 C=48", cfg, state, reps_in, 64, 64, 48,
+                         lambda ii, qqf: rerank_topk(shadow, ii, ii >= 0, qqf, metric=cos, k=K))
+        else:
+            _split_batch(torch, f"{name} search + expand + int8 rerank, ef=64 C=48", cfg, state, reps_in,
+                         64, 64, 48,
+                         lambda ii, qqf: expand_rerank_topk(shadow, state.adj0, ii, ii >= 0, qqf,
+                                                            metric=cos, k=K, filter_mask=live))
+        out[form] = dict(name=name, cfg=cfg, state=state, qpool=qpool, launches=launches[form],
+                         build_s=build_s, sweep=sweep)
+        del x, xp, xf, shadow, reps_in, valid
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_quantized_loops(torch, device, qruns):
+    """Phase 3c, on phase 6's graphs: the loop kernel's int8 and word forms
+    against beam_loop_plain at the search and the construction shape.
+    Integer forms must be exactly equal; raw cosine within 1e-6."""
+    from tpuvec_torch.index.build import _build_iter_budget
+    from tpuvec_torch.index.graph import prepare_vectors
+    from tpuvec_torch.index.search import default_max_iters, descend_to_level1, seed_beam
+    from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain, node_dist
+    from tpuvec_torch.types import DistanceMetric
+
+    shapes = {}
+    for form, run in qruns.items():
+        cfg, state, qpool = run["cfg"], run["state"], run["qpool"]
+        qs = prepare_vectors(cfg, qpool[:NQ], device=device)
+        qc = prepare_vectors(cfg, qpool[NQ : NQ + 1024], device=device)
+        efc = max(cfg.ef_construction, cfg.max_m0)
+        cases = [(qs, 64, 1, default_max_iters(64, 1)),
+                 (qc, efc, 2, _build_iter_budget(cfg.cap, efc, 2))]
+        if form == "int8":  # (label, metric, normalized, distance tolerance)
+            metrics = [("sq-L2", cfg.graph_metric, cfg.normalized, 0.0),
+                       ("L1", DistanceMetric.L1, False, 0.0),
+                       ("cosine", DistanceMetric.COSINE, False, 1e-6)]
+        else:
+            metrics = [("Hamming", cfg.graph_metric, False, 0.0)]
+        shapes[form] = []
+        for mlabel, metric, normalized, tol in metrics:
+            kw = dict(metric=metric, normalized=normalized)
+            for q, ef, e, max_iters in cases:
+                seed_i, _ = descend_to_level1(cfg, state, q)
+                seed_d = node_dist(metric, normalized, state.vectors, q, seed_i[:, None])[:, 0]
+                args = (q, state.vectors, state.adj0, *seed_beam(seed_i, seed_d, ef=ef, n_expand=e))
+                b, efp, w, dp = q.shape[0], args[3].shape[1], e * cfg.max_m0, q.shape[1]
+                label = f"{form} {mlabel} B={b} EF={efp} W={w} E={e} Dp={dp}"
+                kd, ki, k_it = beam_loop(*args, **kw, max_iters=max_iters)
+                fresh, adj, (pd, pi, p_it) = _loop_visits(torch, args, dict(kw, max_iters=max_iters))
+                if tol == 0.0:
+                    if not (torch.equal(kd, pd) and torch.equal(ki, pi) and k_it == p_it):
+                        raise AssertionError(
+                            f"beam_loop {label}: not exactly equal to plain: ids differ in "
+                            f"{int((ki != pi).sum())} slots, iterations {k_it} vs {p_it}"
+                        )
+                    err = 0.0
+                else:
+                    err = _check_one_iteration(torch, label, kd, ki, pd, pi, tol=tol,
+                                               when="over the full loop")
+                    if k_it != p_it:
+                        raise AssertionError(f"beam_loop {label}: iterations {k_it} vs plain {p_it}")
+                ms = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10,
+                                "beam_search_level0_kernel")
+                plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
+                iters_t = torch.empty((b,), dtype=torch.int32)
+                bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj, (kd, ki, iters_t))
+                shapes[form].append(dict(
+                    metric=mlabel, B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_it,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err,
+                ))
+                same = "exactly equal to plain" if tol == 0.0 else f"within {tol:g} of plain (max err {err:.2e})"
+                _log(
+                    f"kernels: beam_loop {label}: {same}, {k_it} iterations; device {ms:.4f} ms "
+                    f"per launch (bound {bound_ms:.5f} ms by {bound_by}: {distinct / 1e6:.2f} MB "
+                    f"distinct, {per_visit / 1e6:.2f} MB per visit); plain loop {plain_ms:.2f} ms"
+                )
+    return shapes
+
+
 def main() -> int:
     import argparse
 
@@ -557,15 +845,16 @@ def main() -> int:
     run = run_main_path(torch, device, args.n)
     loop_shapes = check_loop_kernel(torch, device, run)
     trace_main_path(torch, device, run)
+    qruns = run_quantized(torch, device, args.n)
+    qshapes = check_quantized_loops(torch, device, qruns)
 
-    def entry(name, replaces, shapes):
-        main_shape = shapes[-1]  # the construction shape: most of the path's time
+    def entry(name, replaces, launches, shapes, main_shape):
         return {
             "name": name,
             "route": "cuda",
             "source": "tpuvec_torch/csrc/beam_update.cu",
             "replaces": replaces,
-            "launches": run["launches"][name],
+            "launches": launches,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
@@ -575,10 +864,17 @@ def main() -> int:
             "shapes": shapes,
         }
 
+    # main shape: the construction shape, most of the path's time (for the
+    # int8 form, of its squared-L2 form, the one config 3 runs)
+    loop_src = "tpuvec/ops/pallas_beam.py:144 + tpuvec/index/search.py:336-357"
     kernels_line = [
-        entry("beam_update", "tpuvec/ops/pallas_beam.py:144", update_shapes),
-        entry("beam_search_level0",
-              "tpuvec/ops/pallas_beam.py:144 + tpuvec/index/search.py:336-357", loop_shapes),
+        entry("beam_update", "tpuvec/ops/pallas_beam.py:144", run["launches"]["beam_update"],
+              update_shapes, update_shapes[-1]),
+        entry("beam_search_level0[f32]", loop_src, run["launches"]["f32"], loop_shapes, loop_shapes[-1]),
+        entry("beam_search_level0[int8]", loop_src, qruns["int8"]["launches"], qshapes["int8"],
+              qshapes["int8"][1]),
+        entry("beam_search_level0[words]", loop_src, qruns["words"]["launches"], qshapes["words"],
+              qshapes["words"][1]),
     ]
     _log(card)
     _log(json.dumps({"kernels": kernels_line}))

@@ -91,11 +91,24 @@ def test_distances_match_jax(metric, normalized):
 
 
 def test_int8_and_hamming_branches_raise():
-    q = torch.ones((2, 8), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        td.internal_pairwise(DistanceMetric.L2, q, q)
-    with pytest.raises(NotImplementedError):
-        td.gathered_internal(DistanceMetric.HAMMING, q, q[:, None, :])
+    """The int8 and Hamming branches, once not ported (they raised), now
+    give the JAX package's integers exactly, in the pairwise and the
+    gathered form (tests/test_torch_quantize.py holds every metric)."""
+    rng = np.random.default_rng(7)
+    q = rng.integers(-128, 128, (2, 128)).astype(np.int8)
+    pair = td.internal_pairwise(DistanceMetric.L2, torch.from_numpy(q), torch.from_numpy(q))
+    np.testing.assert_array_equal(
+        pair.numpy(), np.asarray(jd.internal_pairwise(JaxMetric.L2, jnp.asarray(q), jnp.asarray(q)))
+    )
+    assert (np.diag(pair.numpy()) == 0).all()
+    w = rng.integers(0, 2**32, (2, 8), dtype=np.uint32)
+    nb = rng.integers(0, 2**32, (2, 5, 8), dtype=np.uint32)
+    gath = td.gathered_internal(
+        DistanceMetric.HAMMING, torch.from_numpy(w.view(np.int32)), torch.from_numpy(nb.view(np.int32))
+    )
+    np.testing.assert_array_equal(
+        gath.numpy(), np.asarray(jd.gathered_internal(JaxMetric.HAMMING, jnp.asarray(w), jnp.asarray(nb)))
+    )
 
 
 def test_prepare_and_exact_scan_match_jax():

@@ -171,8 +171,10 @@ def test_level0_loop_per_query_equals_batch(graph, max_iters):
 
 def test_level0_loop_wrapper_checks(graph, monkeypatch):
     """On CPU tensors beam_loop runs the plain loop and never loads a
-    kernel; metric forms the kernel lacks raise NotImplementedError; wrong
-    dtypes, shapes and layouts raise ValueError."""
+    kernel; rows and metrics that are no form of the kernel (int8 queries
+    on f32 rows, Hamming on f32 rows, a metric on words, int8 rows of a
+    width that is not whole 16-byte loads), and wrong dtypes, shapes and
+    layouts raise ValueError."""
 
     def no_kernel(name):
         raise AssertionError(f"a CPU tensor reached the kernel loader ({name})")
@@ -184,11 +186,17 @@ def test_level0_loop_wrapper_checks(graph, monkeypatch):
     d, i, it = beam_loop(qp, state.vectors, state.adj0, *beam, **kw)
     assert d.shape == i.shape == (NQ, 32) and 1 <= it <= 4
 
-    with pytest.raises(NotImplementedError, match="Hamming"):
+    with pytest.raises(ValueError, match="hamming"):
         beam_loop(qp, state.vectors, state.adj0, *beam,
                   metric=DistanceMetric.HAMMING, normalized=False, max_iters=4)
-    with pytest.raises(NotImplementedError, match="int8"):
-        beam_loop(qp.to(torch.int8), state.vectors.to(torch.int8), state.adj0, *beam, **kw)
+    with pytest.raises(ValueError, match="int8"):
+        beam_loop(qp.to(torch.int8), state.vectors, state.adj0, *beam, **kw)
+    words = state.vectors.view(torch.int32)
+    with pytest.raises(ValueError, match="cosine"):
+        beam_loop(qp.view(torch.int32), words, state.adj0, *beam, **kw)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        beam_loop(qp[:, :40].to(torch.int8), state.vectors[:, :40].to(torch.int8), state.adj0,
+                  *beam, **kw)
 
     beam_d, beam_i, beam_x, cand, active = beam
     bad = [

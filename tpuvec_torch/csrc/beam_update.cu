@@ -38,16 +38,30 @@
 // construction shape (B=1024, EF=256, W=64, E=2).
 //
 // beam_search_level0_kernel runs the whole level-0 loop of one query in one
-// block. The query row (Dp f32, Dp a multiple of 128, so rows align to 16
-// bytes), the beam and the window live in shared memory. Each iteration
-// reads the E frontier adjacency rows of adj0 (ids < 0 give a window of -1),
-// dedups the window, and only then reads the vector rows of the fresh
-// entries: warps take the fresh rows in turn and read each with 16-byte
-// loads, kRowChunk float4 per lane issued before any is reduced, so a row's
-// loads are in flight together. The distance is the JAX formula: |q|^2 +
-// |n|^2 - 2 q.n clamped at 0 (L2 and normalized cosine), sum |q - n| (L1),
-// or 1 - q.n / (|q| |n|) (cosine of unnormalized rows). Then the shared step.
-// A query stops when it is inactive or has run max_iters iterations.
+// block. The query row, the beam and the window live in shared memory. Each
+// iteration reads the E frontier adjacency rows of adj0 (ids < 0 give a
+// window of -1), dedups the window, and only then reads the vector rows of
+// the fresh entries: warps take the fresh rows in turn and read each with
+// 16-byte loads, kRowChunk loads per lane issued before any is reduced, so a
+// row's loads are in flight together. Then the shared step. A query stops
+// when it is inactive or has run max_iters iterations.
+//
+// The kernel is a template on the row form (F32Rows, Int8Rows, WordRows
+// below; ops/beam.py:_loop_form picks one from the rows' dtype and the
+// metric). Each reads a row as 16-byte vectors and computes the JAX
+// package's internal distance (tpuvec/ops/distance.py:gathered_internal):
+//   f32 rows (Dp a multiple of 4): |q|^2 + |n|^2 - 2 q.n clamped at 0 (L2
+//     and normalized cosine), sum |q - n| (L1), or 1 - q.n / (|q| |n|)
+//     (cosine of unnormalized rows), in float32;
+//   int8 rows (Dp a multiple of 16; 128 in the index): the same three forms
+//     on exact int32 sums, q.n and |n|^2 by __dp4a and L1 by __vabsdiffs4,
+//     so squared L2 is the integer sum((q - n)^2) that the JAX package
+//     accumulates in int32, cast to float once at the end;
+//   packed bit words (int32 holding uint32 bits, Dp words a multiple of 4;
+//     8 in the index): Hamming, the sum of __popc(q ^ n), cast to float.
+// Integer distances are exact, so on int8 (squared L2, L1) and word rows
+// the kernel equals beam_loop_plain bit for bit; float sums run in another
+// order than the plain loop's bmm.
 //
 // Why a per-block loop equals the lock-step loops of the JAX package and of
 // beam_loop_plain: those advance the whole batch until every query is
@@ -64,7 +78,9 @@
 // and adjacency rows that the batch's loop reads, each once, plus q and the
 // beams in and out. A query against W rows is a matrix-vector product, so
 // tensor cores do not serve it, and the few FLOPs per byte keep it far from
-// the float32 rate. The launch has one block per query: B=256 (search) is
+// the float32 rate; int8 and word rows move 4x and 32x fewer bytes a row
+// for the same work (a word row is 128 B at 1024 dims, an adjacency row
+// of 32 ids also 128 B). The launch has one block per query: B=256 (search) is
 // about 2 blocks per SM of the 132, B=1024 (construction) about 8. The
 // chain of two dependent reads per iteration (adjacency, then vectors), and
 // the step's barriers, set the time of an iteration. Later work: prefetch
@@ -80,12 +96,18 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxE = 64;
-constexpr int kRowChunk = 8;  // float4 loads of a row in flight per lane
+constexpr int kRowChunk = 8;  // 16-byte loads of a row in flight per lane
 
-// metric forms of the loop kernel (ops/beam.py:_metric_form)
+// distance forms of the loop kernel (ops/beam.py:_loop_form)
 constexpr int kSqL2 = 0;
 constexpr int kL1 = 1;
 constexpr int kCosine = 2;
+constexpr int kHamming = 3;
+
+// row forms of the loop kernel (ops/beam.py:_ROWS)
+constexpr int kRowsF32 = 0;
+constexpr int kRowsInt8 = 1;
+constexpr int kRowsWords = 2;
 
 // One query's beam and window in shared memory.
 struct Step {
@@ -103,7 +125,7 @@ struct Step {
   uint32_t* words;   // [ceil(max(EF, W) / 32)] ballot words
   int32_t* cand;     // [E] next frontier
   int32_t* active;   // [1]
-  float* qq;         // [1] |q|^2
+  unsigned char* qq; // [1] |q|^2, in the row form's accumulator type
   uint8_t* fresh;    // [W]
 };
 
@@ -113,14 +135,15 @@ __host__ __device__ inline unsigned char* take(unsigned char* base, size_t* off,
   return p;
 }
 
-// Carves the shared memory: the query row (dp floats) first, so it stays
-// 16-byte aligned, then the 4-byte arrays, then the byte arrays. Returns the
-// bytes needed; fills `s` and `q` when `base` is not null.
-__host__ __device__ size_t layout(unsigned char* base, int ef, int w, int e, int dp,
-                                  Step* s, float** q) {
+// Carves the shared memory: the query row (row_bytes, rounded up to 16) first,
+// so it and what follows stay 16-byte aligned, then the 4-byte arrays, then
+// the byte arrays. Returns the bytes needed; fills `s` and `q` when `base`
+// is not null.
+__host__ __device__ size_t layout(unsigned char* base, int ef, int w, int e,
+                                  size_t row_bytes, Step* s, unsigned char** q) {
   const size_t n_words = ((ef > w ? ef : w) + 31) / 32;
   size_t off = 0;
-  float* sq = reinterpret_cast<float*>(take(base, &off, sizeof(float) * dp));
+  unsigned char* sq = take(base, &off, (row_bytes + 15) / 16 * 16);
   Step t;
   t.d = reinterpret_cast<float*>(take(base, &off, 4 * ef));
   t.od = reinterpret_cast<float*>(take(base, &off, 4 * ef));
@@ -134,7 +157,7 @@ __host__ __device__ size_t layout(unsigned char* base, int ef, int w, int e, int
   t.words = reinterpret_cast<uint32_t*>(take(base, &off, 4 * n_words));
   t.cand = reinterpret_cast<int32_t*>(take(base, &off, 4 * e));
   t.active = reinterpret_cast<int32_t*>(take(base, &off, 4));
-  t.qq = reinterpret_cast<float*>(take(base, &off, 4));
+  t.qq = take(base, &off, 4);
   t.x = take(base, &off, ef);
   t.ox = take(base, &off, ef);
   t.fresh = take(base, &off, w);
@@ -322,56 +345,135 @@ beam_update_kernel(const float* __restrict__ beam_d,
   if (tid == 0) active[q] = *s.active ? 1 : 0;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <class T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
+// The row forms. Each reads a row as 16-byte vectors (Vec) of kPerVec
+// elements. A lane folds its vectors into two partial sums (a, b) with
+// add(), the warp adds them up, and finish() turns them and |q|^2 into the
+// internal distance. norm_part() is one lane's part of |q|^2.
+struct F32Rows {
+  using Elem = float;
+  using Vec = float4;
+  using Acc = float;
+  static constexpr int kPerVec = 4;
+
+  // a = q.n and b = |n|^2, or a = sum |q - n| for L1
+  __device__ static void add(int metric, const Vec& x, const Vec& v, Acc& a, Acc& b) {
+    if (metric == kL1) {
+      a += fabsf(x.x - v.x) + fabsf(x.y - v.y) + fabsf(x.z - v.z) + fabsf(x.w - v.w);
+    } else {
+      a = fmaf(x.x, v.x, fmaf(x.y, v.y, fmaf(x.z, v.z, fmaf(x.w, v.w, a))));
+      b = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, b))));
+    }
+  }
+  __device__ static float finish(int metric, Acc a, Acc b, Acc qq) {
+    if (metric == kL1) return a;
+    if (metric == kSqL2) return fmaxf(qq + b - 2.f * a, 0.f);
+    const float denom = sqrtf(qq) * sqrtf(b);
+    return 1.f - (denom > 0.f ? a / denom : 0.f);
+  }
+  __device__ static Acc norm_part(const Elem* sq, int dp, int lane) {
+    float acc = 0.f;
+    for (int c = lane; c < dp; c += 32) acc = fmaf(sq[c], sq[c], acc);
+    return acc;
+  }
+};
+
+struct Int8Rows {
+  using Elem = int8_t;
+  using Vec = int4;
+  using Acc = int;
+  static constexpr int kPerVec = 16;
+
+  // sum |x - v| over the four int8 lanes of one word, added to acc
+  __device__ static int abs_diff(int x, int v, int acc) {
+    const unsigned d = __vabsdiffs4(static_cast<unsigned>(x), static_cast<unsigned>(v));
+    return static_cast<int>(__dp4a(d, 0x01010101u, static_cast<unsigned>(acc)));
+  }
+  // a = q.n and b = |n|^2, or a = sum |q - n| for L1, all exact in int32
+  __device__ static void add(int metric, const Vec& x, const Vec& v, Acc& a, Acc& b) {
+    if (metric == kL1) {
+      a = abs_diff(x.x, v.x, abs_diff(x.y, v.y, abs_diff(x.z, v.z, abs_diff(x.w, v.w, a))));
+    } else {
+      a = __dp4a(x.x, v.x, __dp4a(x.y, v.y, __dp4a(x.z, v.z, __dp4a(x.w, v.w, a))));
+      b = __dp4a(v.x, v.x, __dp4a(v.y, v.y, __dp4a(v.z, v.z, __dp4a(v.w, v.w, b))));
+    }
+  }
+  __device__ static float finish(int metric, Acc a, Acc b, Acc qq) {
+    if (metric == kL1) return static_cast<float>(a);
+    if (metric == kSqL2) return static_cast<float>(qq + b - 2 * a);  // = sum (q - n)^2
+    const float denom = sqrtf(static_cast<float>(qq)) * sqrtf(static_cast<float>(b));
+    return 1.f - (denom > 0.f ? static_cast<float>(a) / denom : 0.f);
+  }
+  __device__ static Acc norm_part(const Elem* sq, int dp, int lane) {
+    const int4* q4 = reinterpret_cast<const int4*>(sq);
+    int acc = 0;
+    for (int c = lane; c < dp / kPerVec; c += 32) {
+      const int4 x = q4[c];
+      acc = __dp4a(x.x, x.x, __dp4a(x.y, x.y, __dp4a(x.z, x.z, __dp4a(x.w, x.w, acc))));
+    }
+    return acc;
+  }
+};
+
+struct WordRows {
+  using Elem = uint32_t;
+  using Vec = uint4;
+  using Acc = int;
+  static constexpr int kPerVec = 4;
+
+  // a = the differing bits (Hamming)
+  __device__ static void add(int, const Vec& x, const Vec& v, Acc& a, Acc&) {
+    a += __popc(x.x ^ v.x) + __popc(x.y ^ v.y) + __popc(x.z ^ v.z) + __popc(x.w ^ v.w);
+  }
+  __device__ static float finish(int, Acc a, Acc, Acc) { return static_cast<float>(a); }
+  __device__ static Acc norm_part(const Elem*, int, int) { return 0; }
+};
+
 // Internal distance of the query row (shared memory) to one vector row in
 // device memory, by one warp; every lane gets the result.
-__device__ __forceinline__ float row_distance(const float* __restrict__ sq,
-                                              const float* __restrict__ row,
-                                              int dp, int metric, float qq) {
+template <class R>
+__device__ __forceinline__ float row_distance(const typename R::Elem* __restrict__ sq,
+                                              const typename R::Elem* __restrict__ row,
+                                              int dp, int metric, typename R::Acc qq) {
+  using Vec = typename R::Vec;
+  using Acc = typename R::Acc;
   const int lane = lane_id();
-  const int nv = dp >> 2;
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  const float4* q4 = reinterpret_cast<const float4*>(sq);
-  float a = 0.f, b = 0.f;  // q.n and |n|^2, or sum |q - n| for L1
+  const int nv = dp / R::kPerVec;
+  const Vec* rv = reinterpret_cast<const Vec*>(row);
+  const Vec* qv = reinterpret_cast<const Vec*>(sq);
+  Acc a = 0, b = 0;
   for (int c0 = lane; c0 < nv; c0 += 32 * kRowChunk) {
-    float4 v[kRowChunk];
+    Vec v[kRowChunk];
 #pragma unroll
     for (int u = 0; u < kRowChunk; ++u) {
       const int c = c0 + 32 * u;
-      v[u] = c < nv ? __ldg(r4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[u] = c < nv ? __ldg(rv + c) : Vec{};
     }
 #pragma unroll
     for (int u = 0; u < kRowChunk; ++u) {
       const int c = c0 + 32 * u;
-      if (c < nv) {
-        const float4 x = q4[c];
-        if (metric == kL1) {
-          a += fabsf(x.x - v[u].x) + fabsf(x.y - v[u].y) + fabsf(x.z - v[u].z) +
-               fabsf(x.w - v[u].w);
-        } else {
-          a = fmaf(x.x, v[u].x, fmaf(x.y, v[u].y, fmaf(x.z, v[u].z, fmaf(x.w, v[u].w, a))));
-          b = fmaf(v[u].x, v[u].x,
-                   fmaf(v[u].y, v[u].y, fmaf(v[u].z, v[u].z, fmaf(v[u].w, v[u].w, b))));
-        }
-      }
+      if (c < nv) R::add(metric, qv[c], v[u], a, b);
     }
   }
   a = warp_sum(a);
-  if (metric == kL1) return a;
-  b = warp_sum(b);
-  if (metric == kSqL2) return fmaxf(qq + b - 2.f * a, 0.f);
-  const float denom = sqrtf(qq) * sqrtf(b);
-  return 1.f - (denom > 0.f ? a / denom : 0.f);
+  if (metric != kL1 && metric != kHamming) b = warp_sum(b);
+  return R::finish(metric, a, b, qq);
 }
 
-__global__ void __launch_bounds__(kThreads)
-beam_search_level0_kernel(const float* __restrict__ q,
-                          const float* __restrict__ vectors,
+// At most 64 registers a thread, so 4 blocks fit an SM: the construction
+// shape (B=1024, ~8 blocks per SM) then runs in fewer waves. Left to
+// itself ptxas gives each row form ~80 registers and 3 blocks an SM, which
+// is slower there (chip_smoke.py phase 3b; PERF.md has the times).
+template <class R>
+__global__ void __launch_bounds__(kThreads, 4)
+beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
+                          const typename R::Elem* __restrict__ vectors,
                           const int32_t* __restrict__ adj0,
                           const float* __restrict__ beam_d,
                           const int32_t* __restrict__ beam_i,
@@ -382,19 +484,23 @@ beam_search_level0_kernel(const float* __restrict__ q,
                           int32_t* __restrict__ out_i,
                           int32_t* __restrict__ iters,
                           int ef, int m0, int e, int dp, int metric, int max_iters) {
+  using Elem = typename R::Elem;
+  using Vec = typename R::Vec;
+  using Acc = typename R::Acc;
   extern __shared__ __align__(16) unsigned char smem[];
   const int w = e * m0;
   Step s;
-  float* sq;
-  layout(smem, ef, w, e, dp, &s, &sq);
+  unsigned char* qrow;
+  layout(smem, ef, w, e, sizeof(Elem) * dp, &s, &qrow);
+  Elem* sq = reinterpret_cast<Elem*>(qrow);
   const int qb = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = lane_id();
   const int warp = warp_id();
   const size_t ob = static_cast<size_t>(qb) * ef;
 
-  const float4* qg = reinterpret_cast<const float4*>(q + static_cast<size_t>(qb) * dp);
-  for (int c = tid; c < (dp >> 2); c += blockDim.x) reinterpret_cast<float4*>(sq)[c] = qg[c];
+  const Vec* qg = reinterpret_cast<const Vec*>(q + static_cast<size_t>(qb) * dp);
+  for (int c = tid; c < dp / R::kPerVec; c += blockDim.x) reinterpret_cast<Vec*>(sq)[c] = qg[c];
   for (int j = tid; j < ef; j += blockDim.x) {
     s.d[j] = beam_d[ob + j];
     s.i[j] = beam_i[ob + j];
@@ -404,13 +510,11 @@ beam_search_level0_kernel(const float* __restrict__ q,
   if (tid == 0) *s.active = active[qb] ? 1 : 0;
   __syncthreads();
   if (warp == 0) {
-    float acc = 0.f;
-    for (int c = lane; c < dp; c += 32) acc = fmaf(sq[c], sq[c], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) *s.qq = acc;
+    const Acc acc = warp_sum(R::norm_part(sq, dp, lane));
+    if (lane == 0) *reinterpret_cast<Acc*>(s.qq) = acc;
   }
   __syncthreads();
-  const float qq = *s.qq;
+  const Acc qq = *reinterpret_cast<const Acc*>(s.qq);
 
   int it = 0;
   while (it < max_iters && *s.active) {
@@ -433,8 +537,8 @@ beam_search_level0_kernel(const float* __restrict__ q,
     __syncthreads();
     for (int f = warp; f < n_fresh; f += kWarps) {
       const int j = s.flist[f];
-      const float* row = vectors + static_cast<size_t>(s.wi[j]) * dp;
-      const float dist = row_distance(sq, row, dp, metric, qq);
+      const Elem* row = vectors + static_cast<size_t>(s.wi[j]) * dp;
+      const float dist = row_distance<R>(sq, row, dp, metric, qq);
       if (lane == 0) s.wd[j] = dist;
     }
     __syncthreads();
@@ -479,6 +583,37 @@ int allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
+// Launches the loop kernel of row form R; see tpuvec_beam_search_level0.
+template <class R>
+int launch_level0(const void* q, const void* vectors, const void* adj0, const void* beam_d,
+                  const void* beam_i, const void* beam_x, const void* cand, const void* active,
+                  void* out_d, void* out_i, void* iters, int b, int ef, int m0, int e, int dp,
+                  int metric, int max_iters, cudaStream_t stream) {
+  using Elem = typename R::Elem;
+  const size_t smem = layout(nullptr, ef, e * m0, e, sizeof(Elem) * dp, nullptr, nullptr);
+  if (const int rc = allow_smem(beam_search_level0_kernel<R>, smem)) return rc;
+  beam_search_level0_kernel<R><<<b, kThreads, smem, stream>>>(
+      static_cast<const Elem*>(q), static_cast<const Elem*>(vectors),
+      static_cast<const int32_t*>(adj0), static_cast<const float*>(beam_d),
+      static_cast<const int32_t*>(beam_i), static_cast<const uint8_t*>(beam_x),
+      static_cast<const int32_t*>(cand), static_cast<const uint8_t*>(active),
+      static_cast<float*>(out_d), static_cast<int32_t*>(out_i),
+      static_cast<int32_t*>(iters), ef, m0, e, dp, metric, max_iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether the loop kernel takes rows of form `rows` and `dp` elements with
+// distance form `metric`: a row must be whole 16-byte loads, and Hamming
+// runs on words only, every other form on f32 or int8 rows.
+bool good_rows(int rows, int dp, int metric) {
+  switch (rows) {
+    case kRowsF32: return dp >= 4 && dp % 4 == 0 && metric >= kSqL2 && metric <= kCosine;
+    case kRowsInt8: return dp >= 16 && dp % 16 == 0 && metric >= kSqL2 && metric <= kCosine;
+    case kRowsWords: return dp >= 4 && dp % 4 == 0 && metric == kHamming;
+    default: return false;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -503,29 +638,25 @@ int tpuvec_beam_update(const void* beam_d, const void* beam_i,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The whole level-0 loop for b queries, one block each. Launches on
-// `stream` and returns cudaGetLastError(), or kSmemTooLarge.
+// The whole level-0 loop for b queries, one block each, on rows of form
+// `rows` (kRowsF32 / kRowsInt8 / kRowsWords) with distance form `metric`.
+// Launches on `stream` and returns cudaGetLastError(), or kSmemTooLarge.
 int tpuvec_beam_search_level0(const void* q, const void* vectors, const void* adj0,
                               const void* beam_d, const void* beam_i, const void* beam_x,
                               const void* cand, const void* active,
                               void* out_d, void* out_i, void* iters,
-                              int b, int ef, int m0, int e, int dp, int metric,
+                              int b, int ef, int m0, int e, int dp, int rows, int metric,
                               int max_iters, void* stream) {
-  if (bad_beam_shape(b, ef, e * m0, e) || m0 < 1 || dp < 4 || (dp & 3) || max_iters < 0 ||
-      metric < kSqL2 || metric > kCosine) {
+  if (bad_beam_shape(b, ef, e * m0, e) || m0 < 1 || max_iters < 0 ||
+      !good_rows(rows, dp, metric)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0) return 0;
-  const size_t smem = layout(nullptr, ef, e * m0, e, dp, nullptr, nullptr);
-  if (const int rc = allow_smem(beam_search_level0_kernel, smem)) return rc;
-  beam_search_level0_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(vectors),
-      static_cast<const int32_t*>(adj0), static_cast<const float*>(beam_d),
-      static_cast<const int32_t*>(beam_i), static_cast<const uint8_t*>(beam_x),
-      static_cast<const int32_t*>(cand), static_cast<const uint8_t*>(active),
-      static_cast<float*>(out_d), static_cast<int32_t*>(out_i),
-      static_cast<int32_t*>(iters), ef, m0, e, dp, metric, max_iters);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = rows == kRowsF32    ? launch_level0<F32Rows>
+                : rows == kRowsInt8 ? launch_level0<Int8Rows>
+                                    : launch_level0<WordRows>;
+  return launch(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, out_d, out_i, iters,
+                b, ef, m0, e, dp, metric, max_iters, static_cast<cudaStream_t>(stream));
 }
 
 const char* tpuvec_cuda_error_string(int code) {

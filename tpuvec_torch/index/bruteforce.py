@@ -1,7 +1,9 @@
 """Exact (ENN) brute-force k-NN: tiled matrix product + running top-k.
 
-Distances for a whole [B queries x chunk] tile come from one product, and
-the running top-k is merged per chunk with ``torch.topk``. Doubles as the
+Distances for a whole [B queries x chunk] tile come from one product
+(exact integer products for int8 rows and, through the +-1 expansion, for
+packed words under Hamming), and the running top-k is merged per chunk
+with ``torch.topk``. Doubles as the
 ground-truth oracle for HNSW recall, and as the exact upper-level
 neighbor selection of the build.
 """

@@ -27,12 +27,13 @@ import torch
 
 from tpuvec_torch.device import resolve
 from tpuvec_torch.index.bruteforce import bruteforce_knn_internal
-from tpuvec_torch.index.graph import GraphState, HnswConfig, allocate
+from tpuvec_torch.index.graph import GraphState, HnswConfig, allocate, as_store_tensor
 from tpuvec_torch.index.search import (
     beam_search_level0,
     default_max_iters,
     descend_to_level1,
 )
+from tpuvec_torch.ops.distance import hamming_pairwise
 from tpuvec_torch.types import DistanceMetric
 from tpuvec_torch.utils.prng import sample_levels_np
 
@@ -63,10 +64,11 @@ def _pairwise_cands(config: HnswConfig, cvecs: torch.Tensor) -> torch.Tensor:
     (heuristic_select compares the two directly)."""
     metric = config.graph_metric
     if metric is DistanceMetric.HAMMING:
-        raise NotImplementedError("Hamming graphs are not ported yet")
-    ci = cvecs.to(torch.float32)
+        return hamming_pairwise(cvecs, cvecs)  # batched: one exact product
+    ci = cvecs.to(torch.float32)  # int8 rows too, as the JAX package does
     if metric is DistanceMetric.L1:
-        return (ci[:, :, None, :] - ci[:, None, :, :]).abs().sum(-1)
+        # no [nb, C, C, Dp] broadcast: at the build's batch that is tens of GB
+        return torch.cdist(ci, ci, p=1.0)
     dots = torch.bmm(ci, ci.transpose(1, 2))
     if metric is DistanceMetric.COSINE and not config.normalized:
         norms = torch.sqrt((ci * ci).sum(-1))
@@ -378,13 +380,13 @@ def build_graph(
     start_size: int = 1,
     device: str | torch.device = "cuda",
 ) -> GraphState:
-    """Build a graph over prepared vectors [N, Dp] (numpy or tensor) on
-    ``device``, in doubling mini-batches. ``start_size`` seeds the
+    """Build a graph over prepared vectors [N, Dp] (numpy or tensor; packed
+    words may come as uint32 and are viewed as int32) on ``device``, in doubling mini-batches. ``start_size`` seeds the
     schedule with the current graph size when inserting into an existing
     ``state``. Batches are not padded to one shape: torch runs eagerly and
     has nothing to recompile."""
     dev = resolve(device)
-    x = torch.as_tensor(vectors_prepared, device=dev).to(config.store_dtype)
+    x = as_store_tensor(vectors_prepared, device=dev).to(config.store_dtype)
     n = x.shape[0]
     ids = np.arange(n, dtype=np.int32) if ids is None else np.asarray(ids, dtype=np.int32)
     if state is None:

@@ -1,10 +1,13 @@
 """Device-resident HNSW graph state: structure of arrays in device memory.
 
-Layout (cap = node capacity, Dp = dim padded to a multiple of 128), the
+Layout (cap = node capacity, Dp = dim padded to a multiple of 128, or
+for packed bits the word count padded to a multiple of 8), the
 same field names, dtypes and shapes as the JAX package's GraphState:
 
-  vectors     [cap, Dp]        index copy of each vector (normalized for
-                               cosine)
+  vectors     [cap, Dp]        index copy of each vector in the store dtype:
+                               f32 (normalized for cosine), int8, or packed
+                               bit words held as int32 (the JAX package's
+                               uint32, bit for bit)
   adj0        i32 [cap, M0]    level-0 adjacency, -1 padded
   adj0_dist   f32 [cap, M0]    stored internal edge distances
   levels      i32 [cap]        node level; -1 = absent
@@ -24,29 +27,23 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from tpuvec_torch.device import resolve
 from tpuvec_torch.index.params import HnswParams
 from tpuvec_torch.ops.distance import internal_needs_normalize
+from tpuvec_torch.quantize import pack_bits_to_words, quantize_int8_for_index
 from tpuvec_torch.types import DistanceMetric, IndexQuantization, VectorType
 
 __all__ = [
     "HnswConfig", "GraphState", "allocate", "config_for", "prepare_vectors",
-    "prepare_queries",
+    "prepare_queries", "as_store_tensor",
 ]
 
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def _float_path_only(vec_type: VectorType, quantization: IndexQuantization) -> None:
-    if vec_type is not VectorType.FLOAT32 or quantization is not IndexQuantization.NONE:
-        raise NotImplementedError(
-            f"{vec_type.value} vectors with {quantization.value} index quantization "
-            "are not ported yet; only float32 without quantization is"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +70,17 @@ class HnswConfig:
 
     @property
     def store_dtype(self) -> torch.dtype:
-        _float_path_only(self.vec_type, self.quantization)
-        return torch.float32
+        """f32, int8, or int32 for packed bit words (uint32 in the JAX
+        package: torch's uint32 has no indexing or shift kernels)."""
+        if self.quantization is IndexQuantization.INT8:
+            return torch.int8
+        if self.quantization is IndexQuantization.BINARY:
+            return torch.int32
+        if self.vec_type is VectorType.FLOAT32:
+            return torch.float32
+        if self.vec_type is VectorType.INT8:
+            return torch.int8
+        return torch.int32  # BIT: packed words
 
     @property
     def internal_metric_is_hamming(self) -> bool:
@@ -176,21 +182,54 @@ def allocate(config: HnswConfig, *, device: str | torch.device = "cuda") -> Grap
     )
 
 
+def as_store_tensor(v, *, device: str | torch.device = "cuda") -> torch.Tensor:
+    """v (numpy or tensor) as a tensor on ``device``; uint32 words become
+    int32 with the same bits (a view, never a value cast)."""
+    if isinstance(v, np.ndarray) and v.dtype == np.uint32:
+        v = v.view(np.int32)
+    t = torch.as_tensor(v, device=resolve(device))
+    if t.dtype == getattr(torch, "uint32", None):
+        t = t.view(torch.int32)
+    return t
+
+
 def prepare_vectors(
     config: HnswConfig, v, *, device: str | torch.device = "cuda"
 ) -> torch.Tensor:
     """Raw user vectors [B, dim] (numpy or tensor) -> index/store form
-    [B, Dp] on ``device``: normalized if cosine, zero-padded to Dp.
-    Queries go through the same transform."""
+    [B, Dp] on ``device``: normalize-if-cosine, then quantize-for-index,
+    zero-padded to Dp. Queries go through the same transform."""
     c = config
-    _float_path_only(c.vec_type, c.quantization)
     dev = resolve(device)
-    vf = torch.as_tensor(v, dtype=torch.float32, device=dev)
+    if c.vec_type is VectorType.BIT:
+        # already packed words; pad to padded_dim
+        w = as_store_tensor(v, device=dev).to(torch.int32)
+        return torch.nn.functional.pad(w, (0, c.padded_dim - w.shape[-1]))
+
+    vf = torch.as_tensor(v, device=dev).to(torch.float32)
     if c.normalized:
         norm = torch.linalg.vector_norm(vf, dim=-1, keepdim=True)
         ok = norm > 0
         vf = torch.where(ok, vf / torch.where(ok, norm, torch.ones_like(norm)), vf)
-    return torch.nn.functional.pad(vf, (0, c.padded_dim - vf.shape[-1]))
+
+    if c.quantization is IndexQuantization.BINARY:
+        d32 = _ceil_to(c.dim, 32)
+        vf = torch.nn.functional.pad(vf, (0, d32 - vf.shape[-1]))
+        # pad bits replicate the mean-threshold of real dims only, then
+        # are zeroed
+        mean = torch.mean(vf[:, : c.dim], dim=-1, keepdim=True)
+        mask = (torch.arange(d32, device=dev) < c.dim)[None, :]
+        words = pack_bits_to_words((vf >= mean) & mask)
+        return torch.nn.functional.pad(words, (0, c.padded_dim - words.shape[-1]))
+
+    pad = c.padded_dim - vf.shape[-1]
+    vf = torch.nn.functional.pad(vf, (0, pad))
+    if c.quantization is IndexQuantization.INT8:
+        return quantize_int8_for_index(vf)
+    if c.vec_type is VectorType.INT8:
+        vi = torch.as_tensor(v, device=dev).to(torch.int8)
+        return torch.nn.functional.pad(vi, (0, pad))
+    return vf
 
 
 # Queries use the identical transform.

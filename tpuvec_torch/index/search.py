@@ -9,7 +9,12 @@ A whole batch of queries advances in lock step through the descent:
   visited test;
 * the level-0 loop (adjacency gather, vector gather, distance, dedup +
   merge + next frontier) is ``ops/beam.py:beam_loop``: one CUDA kernel
-  launch per batch on the card, each query in its own block.
+  launch per batch on the card, each query in its own block, in the form
+  of the graph's rows (f32, int8, or packed words under Hamming).
+
+Queries are prepared into the graph's store dtype (``prepare_queries``),
+so the descent and the loop compute the graph's internal distances on
+rows of one dtype: exact integers for int8 and packed words.
 
 ``n_expand`` (E) expands the E best unexpanded candidates per iteration.
 """
@@ -86,7 +91,8 @@ def beam_search_level0(
 ):
     """Best-first beam search at level 0.
 
-    q [B, Dp]; seed_ids/seed_dists [B] from the descent. Returns
+    q [B, Dp] in the store dtype; seed_ids/seed_dists [B] from the
+    descent. Returns
     (beam_d [B, EF] ascending, beam_i [B, EF], iters) in internal
     distance, with EF = next_pow2(ef); iters is the most iterations any
     query ran while active.
@@ -133,8 +139,8 @@ def search_graph(
 ):
     """Batched k-NN over the graph in *internal* distance space.
 
-    q [B, Dp] must already be prepared (prepare_queries) and lie on the
-    graph's device. Returns (dists [B, k], ids [B, k]) ascending; empty
+    q [B, Dp] must already be prepared (prepare_queries: the graph's store
+    dtype) and lie on the graph's device. Returns (dists [B, k], ids [B, k]) ascending; empty
     index -> (inf, -1). ef defaults to max(ef_search, k).
     """
     ef = max(ef or config.ef_search, k)

@@ -2,7 +2,9 @@
 
 ``state_to_numpy`` / ``state_from_numpy`` move a GraphState field by field
 (the JAX package's GraphState has the same field names, dtypes and
-shapes); ``config_to_dict`` / ``config_from_dict`` move an HnswConfig with
+shapes, except that the port holds packed bit words as int32 where the
+JAX package holds uint32: they cross as ``np.uint32`` views of the same
+bits, never as value casts); ``config_to_dict`` / ``config_from_dict`` move an HnswConfig with
 its enums by ``.value``. Nothing here imports JAX: a caller that holds
 the JAX package wraps the dicts into its types itself.
 """
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from tpuvec_torch.device import resolve
-from tpuvec_torch.index.graph import GraphState, HnswConfig
+from tpuvec_torch.index.graph import GraphState, HnswConfig, as_store_tensor
 from tpuvec_torch.types import DistanceMetric, IndexQuantization, VectorType
 
 __all__ = ["state_to_numpy", "state_from_numpy", "config_to_dict", "config_from_dict"]
@@ -25,10 +27,13 @@ _ENUMS = {"metric": DistanceMetric, "vec_type": VectorType, "quantization": Inde
 
 
 def state_to_numpy(state: GraphState) -> dict[str, np.ndarray]:
-    return {
+    out = {
         f.name: getattr(state, f.name).detach().cpu().numpy()
         for f in dataclasses.fields(GraphState)
     }
+    if out["vectors"].dtype == np.int32:  # int32 rows are always packed words
+        out["vectors"] = out["vectors"].view(np.uint32)
+    return out
 
 
 def state_from_numpy(
@@ -37,7 +42,7 @@ def state_from_numpy(
     dev = resolve(device)
     return GraphState(
         **{
-            f.name: torch.from_numpy(np.array(arrays[f.name], copy=True)).to(dev)
+            f.name: as_store_tensor(np.array(arrays[f.name], copy=True), device=dev)
             for f in dataclasses.fields(GraphState)
         }
     )

@@ -32,7 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "beam_update": {
         "tpuvec_beam_update": ([_P] * 10 + [_I] * 4 + [_P], _I),
-        "tpuvec_beam_search_level0": ([_P] * 11 + [_I] * 7 + [_P], _I),
+        "tpuvec_beam_search_level0": ([_P] * 11 + [_I] * 8 + [_P], _I),
         "tpuvec_cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -31,6 +31,11 @@ adjacency rows (``adj0[cand]``, W = E * M0) and their internal distances
 to the query, until every query is inactive or ``max_iters`` iterations
 have run. Since an inactive query's update is a fixed point, the kernel
 runs each query on its own (one block each) and gives the same beams.
+
+The kernel has a form for each kind of row the index stores: f32, int8
+(exact int32 sums) and packed bit words (int32, Hamming). The form follows
+the rows' dtype (``_loop_form``), and the launches of each form are
+counted in ``beam_loop.form_launches``.
 """
 
 from __future__ import annotations
@@ -209,35 +214,47 @@ def beam_loop_plain(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
     return beam_d, beam_i, int(count.max()) if b else 0
 
 
-def _metric_form(metric: DistanceMetric, normalized: bool) -> int:
-    """The kernel's distance form: 0 = squared L2 (L2, normalized cosine),
-    1 = L1, 2 = cosine 1 - sim."""
-    if metric is DistanceMetric.L2 or (metric is DistanceMetric.COSINE and normalized):
-        return 0
-    if metric is DistanceMetric.L1:
-        return 1
-    if metric is DistanceMetric.COSINE:
-        return 2
+# The kernel's row forms by row dtype: (name, elements per 16-byte load,
+# the form's code in csrc/beam_update.cu)
+_ROWS = {torch.float32: ("f32", 4, 0), torch.int8: ("int8", 16, 1), torch.int32: ("words", 4, 2)}
+
+
+def _loop_form(metric: DistanceMetric, normalized: bool, row_dtype: torch.dtype):
+    """(row form, distance form) of the kernel for rows of ``row_dtype``.
+    Distance forms: 0 = squared L2 (L2, normalized cosine), 1 = L1,
+    2 = cosine 1 - sim, on f32 or int8 rows; 3 = Hamming, on packed words
+    (int32 holding the uint32 bits)."""
+    if row_dtype not in _ROWS:
+        raise ValueError(f"beam_loop: rows of {row_dtype} are not a row form of the kernel")
+    row = _ROWS[row_dtype][0]
+    if (metric is DistanceMetric.HAMMING) != (row == "words"):
+        raise ValueError(
+            f"beam_loop: {metric.value} distances do not apply to {row_dtype} rows "
+            "(Hamming runs on packed int32 words, every other metric on f32 or int8)"
+        )
     if metric is DistanceMetric.HAMMING:
-        raise NotImplementedError("Hamming distances are not ported yet")
+        return row, 3
+    if metric is DistanceMetric.L2 or (metric is DistanceMetric.COSINE and normalized):
+        return row, 0
+    if metric is DistanceMetric.L1:
+        return row, 1
+    if metric is DistanceMetric.COSINE:
+        return row, 2
     raise ValueError(f"unsupported metric {metric}")
 
 
 def _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, metric,
                 normalized, max_iters):
-    form = _metric_form(metric, normalized)
-    for t in (q, vectors):
-        if not t.is_floating_point():
-            raise NotImplementedError(
-                f"{t.dtype} distances (int8 / packed bits) are not ported yet"
-            )
+    if q.dtype != vectors.dtype:
+        raise ValueError(f"beam_loop: queries are {q.dtype} but rows are {vectors.dtype}")
+    row, form = _loop_form(metric, normalized, vectors.dtype)
     b, efp = _dims(beam_d, 2)
     dp = _dims(q, 2)[1]
     cap, m0 = _dims(adj0, 2)
     e = _dims(cand, 2)[1]
     _expect("beam_loop", beam_d.device, [
-        (q, torch.float32, (b, dp)),
-        (vectors, torch.float32, (cap, dp)),
+        (q, vectors.dtype, (b, dp)),
+        (vectors, vectors.dtype, (cap, dp)),
         (adj0, torch.int32, (cap, m0)),
         (beam_d, torch.float32, (b, efp)),
         (beam_i, torch.int32, (b, efp)),
@@ -246,26 +263,28 @@ def _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, metric,
         (active, torch.bool, (b,)),
     ])
     _check_beam("beam_loop", efp, e * m0, e)
-    if dp < 4 or dp % 4:  # the kernel reads rows as float4
-        raise ValueError(f"beam_loop: row width {dp} is not a multiple of 4")
+    per_load = _ROWS[vectors.dtype][1]
+    if dp < per_load or dp % per_load:  # the kernel reads rows in 16-byte loads
+        raise ValueError(f"beam_loop: {row} row width {dp} is not a multiple of {per_load}")
     if max_iters < 0:
         raise ValueError(f"beam_loop: max_iters = {max_iters} < 0")
-    return form
+    return row, form
 
 
 def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
               metric: DistanceMetric, normalized: bool, max_iters: int):
     """The level-0 loop from a seeded beam and its first frontier.
 
-    q f32[B, Dp] prepared queries; vectors f32[cap, Dp] and adj0 i32[cap, M0]
-    the graph's; beam_d/beam_i/beam_x [B, EF] the beam with the frontier
+    q [B, Dp] prepared queries and vectors [cap, Dp] the graph's rows, both
+    f32, int8, or int32 packed words (Hamming); adj0 i32[cap, M0] the
+    graph's; beam_d/beam_i/beam_x [B, EF] the beam with the frontier
     already marked expanded; cand i32[B, E] and active bool[B] that frontier.
     Returns (beam_d [B, EF], beam_i [B, EF], iters): iters is the most
     iterations any query ran while active. CPU tensors run the plain
     version; CUDA tensors launch the kernel (one block per query), or raise.
     """
-    form = _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active,
-                       metric, normalized, max_iters)
+    row, form = _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active,
+                            metric, normalized, max_iters)
     dev = beam_d.device
     if dev.type == "cpu":
         return beam_loop_plain(
@@ -274,6 +293,8 @@ def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
         )
     if dev.type != "cuda":
         raise ValueError(f"beam_loop: unsupported device {dev}")
+    if q.data_ptr() % 16 or vectors.data_ptr() % 16:
+        raise ValueError("beam_loop: q and vectors must start on a 16-byte boundary")
     from tpuvec_torch import kernels
 
     lib = kernels.load("beam_update")
@@ -291,11 +312,13 @@ def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
             beam_d.data_ptr(), beam_i.data_ptr(), beam_x.data_ptr(),
             cand.data_ptr(), active.data_ptr(),
             out_d.data_ptr(), out_i.data_ptr(), iters.data_ptr(),
-            b, efp, m0, e, dp, form, max_iters, stream,
+            b, efp, m0, e, dp, _ROWS[vectors.dtype][2], form, max_iters, stream,
         )
-    _raise_for(f"beam_loop (EF={efp}, W={e * m0}, Dp={dp})", kernels, lib, rc)
+    _raise_for(f"beam_loop ({row} rows, EF={efp}, W={e * m0}, Dp={dp})", kernels, lib, rc)
     beam_loop.launches += 1
+    beam_loop.form_launches[row] += 1
     return out_d, out_i, int(iters.max()) if b else 0
 
 
-beam_loop.launches = 0
+beam_loop.launches = 0  # all row forms
+beam_loop.form_launches = {name: 0 for name, _, _ in _ROWS.values()}  # per row form

@@ -1,4 +1,4 @@
-"""Batched distances in torch: the float metrics of ``tpuvec/ops/distance.py``.
+"""Batched distances in torch: the port of ``tpuvec/ops/distance.py``.
 
 * ``*_pairwise(q, x)``: [B, D] x [N, D] -> [B, N]  (matrix-product forms)
 * ``gathered_internal(q, nbrs)``: [B, D] x [B, M, D] -> [B, M]  (beam form)
@@ -7,14 +7,18 @@ Distance semantics:
   L2      sqrt(sum((a-b)^2))
   L1      sum(|a-b|)
   COSINE  1 - a.b/(|a| |b|)
+  HAMMING popcount(a XOR b)   (packed words, int32 holding uint32 bits)
 
 Graph traversal uses *internal* distances that are monotone transforms of
 the user metric (squared L2 instead of L2; cosine runs on normalized
 vectors as squared L2, converted on output as cos = L2^2/2).
 ``internal_to_output`` converts internal values to user-facing ones.
 
-The int8 (exact int32 accumulation) and Hamming branches are not ported
-yet and raise NotImplementedError. On CUDA the products run in full
+int8 inputs give exact integers, as the JAX package's int32 accumulation
+does: ``torch.matmul`` has no integer form on CUDA, so integer products
+run in float32 over column chunks small enough that every partial sum is
+an exactly representable integer, and the chunks are summed in int32.
+Hamming is exact integer counts. On CUDA the float products run in full
 float32: ``tpuvec_torch.device.resolve`` turns TF32 off.
 """
 
@@ -29,6 +33,8 @@ __all__ = [
     "l2_pairwise",
     "l1_pairwise",
     "cosine_pairwise",
+    "hamming_pairwise",
+    "unpack_pm1",
     "internal_pairwise",
     "gathered_internal",
     "internal_to_output",
@@ -36,19 +42,39 @@ __all__ = [
 ]
 
 _F32 = torch.float32
+_I32 = torch.int32
+
+# Columns per float32 partial product of int8 rows: |a*b| <= 2^14, so a
+# partial sum of 512 products stays within 2^23 and is exact in float32
+# in any summation order (int8 values and +-1 are exact even in TF32).
+_INT_CHUNK = 512
 
 
-def _float_only(*ts: torch.Tensor) -> None:
-    for t in ts:
-        if not t.is_floating_point():
-            raise NotImplementedError(
-                f"{t.dtype} distances (int8 / packed bits) are not ported yet"
-            )
+def _both_int8(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == torch.int8 and b.dtype == torch.int8
+
+
+def _int_dot(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """Exact integer a [..., B, D] @ b_t [..., D, N] -> int32 [..., B, N]."""
+    d = a.shape[-1]
+    out = None
+    for s in range(0, d, _INT_CHUNK):
+        part = torch.matmul(a[..., s : s + _INT_CHUNK].to(_F32), b_t[..., s : s + _INT_CHUNK, :].to(_F32))
+        part = part.to(_I32)
+        out = part if out is None else out + part
+    return out
+
+
+def _int_sq_norms(x: torch.Tensor) -> torch.Tensor:
+    xi = x.to(_I32)
+    return (xi * xi).sum(-1, dtype=_I32)
 
 
 def sq_l2_pairwise(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Squared L2: [B, D] x [N, D] -> [B, N] via |q|^2 + |x|^2 - 2 q.x."""
-    _float_only(q, x)
+    if _both_int8(q, x):
+        d = _int_sq_norms(q)[:, None] + _int_sq_norms(x)[None, :] - 2 * _int_dot(q, x.T)
+        return d.to(_F32)
     qf, xf = q.to(_F32), x.to(_F32)
     qx = qf @ xf.T
     qn = (qf * qf).sum(-1)[:, None]
@@ -61,9 +87,8 @@ def l2_pairwise(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def l1_pairwise(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """L1 via broadcast [B, N, D] reduce: callers chunk N to bound memory."""
-    _float_only(q, x)
-    return (q.to(_F32)[:, None, :] - x.to(_F32)[None, :, :]).abs().sum(-1)
+    """L1: [B, D] x [N, D] -> [B, N], without the [B, N, D] broadcast."""
+    return torch.cdist(q.to(_F32), x.to(_F32), p=1.0)
 
 
 def _cosine_from_dots(dots, qn, xn):
@@ -75,11 +100,44 @@ def _cosine_from_dots(dots, qn, xn):
 
 def cosine_pairwise(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Cosine distance 1 - sim, zero-norm guarded (-> distance 1)."""
-    _float_only(q, x)
+    if _both_int8(q, x):
+        qn = torch.sqrt(_int_sq_norms(q).to(_F32))[:, None]
+        xn = torch.sqrt(_int_sq_norms(x).to(_F32))[None, :]
+        return _cosine_from_dots(_int_dot(q, x.T).to(_F32), qn, xn)
     qf, xf = q.to(_F32), x.to(_F32)
     qn = torch.sqrt((qf * qf).sum(-1))[:, None]
     xn = torch.sqrt((xf * xf).sum(-1))[None, :]
     return _cosine_from_dots(qf @ xf.T, qn, xn)
+
+
+def unpack_pm1(w: torch.Tensor) -> torch.Tensor:
+    """Packed words [..., W] (int32) -> [..., W*32] int8 in {-1, +1},
+    LSB-first within each word (the codec's packing order). Reads the
+    words as little-endian bytes, as both the CPU and the card store them."""
+    by = w.contiguous().view(torch.uint8)  # [..., 4W]
+    shifts = torch.arange(8, dtype=torch.uint8, device=w.device)
+    bits = (by[..., :, None] >> shifts) & 1  # [..., 4W, 8]
+    pm1 = bits.to(torch.int8) * 2 - 1
+    return pm1.reshape(*w.shape[:-1], w.shape[-1] * 32)
+
+
+def hamming_pairwise(qw: torch.Tensor, xw: torch.Tensor) -> torch.Tensor:
+    """Hamming over packed words: [..., B, W] x [..., N, W] -> [..., B, N]
+    (f32), as one exact product of the +-1 expansions:
+    s_a . s_b = Dp - 2*hamming(a, b) (zero pad bits agree on both sides
+    and cancel)."""
+    dp = qw.shape[-1] * 32
+    dot = _int_dot(unpack_pm1(qw), unpack_pm1(xw).transpose(-1, -2))
+    return ((dp - dot) >> 1).to(_F32)
+
+
+def _popcount_words(w: torch.Tensor) -> torch.Tensor:
+    """Set bits per row of words [..., W] -> int32 [...], bytewise."""
+    x = w.contiguous().view(torch.uint8)
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    x = (x + (x >> 4)) & 0x0F
+    return x.sum(-1, dtype=_I32)
 
 
 def internal_needs_normalize(metric: DistanceMetric, vec_type: VectorType) -> bool:
@@ -97,7 +155,7 @@ def internal_pairwise(
     """Internal distance matrix for graph ops. Monotone in the user metric.
 
     L2 -> squared L2; COSINE with `normalized=True` -> squared L2 of the
-    normalized vectors; COSINE otherwise -> 1-sim; L1 -> L1.
+    normalized vectors; COSINE otherwise -> 1-sim; L1 -> L1; HAMMING -> counts.
     """
     if metric is DistanceMetric.L2 or (metric is DistanceMetric.COSINE and normalized):
         return sq_l2_pairwise(q, x)
@@ -106,7 +164,7 @@ def internal_pairwise(
     if metric is DistanceMetric.L1:
         return l1_pairwise(q, x)
     if metric is DistanceMetric.HAMMING:
-        raise NotImplementedError("Hamming distances are not ported yet")
+        return hamming_pairwise(q, x)
     raise ValueError(f"unsupported metric {metric}")
 
 
@@ -119,8 +177,20 @@ def gathered_internal(
 ) -> torch.Tensor:
     """Internal distances q [B, D] vs gathered nbrs [B, M, D] -> [B, M]."""
     if metric is DistanceMetric.HAMMING:
-        raise NotImplementedError("Hamming distances are not ported yet")
-    _float_only(q, nbrs)
+        return _popcount_words(torch.bitwise_xor(q[:, None, :], nbrs)).to(_F32)
+    if _both_int8(q, nbrs):  # exact integers, then f32
+        qi, ni = q.to(_I32)[:, None, :], nbrs.to(_I32)
+        if metric is DistanceMetric.L1:
+            return (qi - ni).abs().sum(-1, dtype=_I32).to(_F32)
+        if metric is DistanceMetric.L2 or normalized:
+            diff = qi - ni
+            return (diff * diff).sum(-1, dtype=_I32).to(_F32)
+        if metric is DistanceMetric.COSINE:
+            qx = (qi * ni).sum(-1, dtype=_I32).to(_F32)
+            qn = torch.sqrt(_int_sq_norms(q).to(_F32))[:, None]
+            nn = torch.sqrt(_int_sq_norms(nbrs).to(_F32))
+            return _cosine_from_dots(qx, qn, nn)
+        raise ValueError(f"unsupported metric {metric}")
     qf, nf = q.to(_F32), nbrs.to(_F32)
     if metric is DistanceMetric.L1:
         return (qf[:, None, :] - nf).abs().sum(-1)
