@@ -7,7 +7,8 @@ Phases, one line each; any failure exits non-zero:
 
 1. card: the card's name and power limit from nvidia-smi (no card: exit);
 2. build: compile every CUDA kernel from tpuvec_torch/csrc with nvcc (the
-   entry points tpuvec_beam_update and tpuvec_beam_search_level0);
+   entry points tpuvec_beam_update and tpuvec_beam_search_level0), and
+   print ptxas's registers and spills for each kernel and form;
 3. kernels: beam_update (one beam iteration) against beam_update_plain on
    the card at the shapes of the main path, exactly, with and without ties;
    its device time per launch (torch.profiler) beside its bound, and the
@@ -50,14 +51,47 @@ Phases, one line each; any failure exits non-zero:
    iterations (integer distances, the same stable merge); int8 raw cosine
    within 1e-6 in distance with ids equal wherever slots are more than 1e-6
    apart; each form's device time per launch beside its bound and the
-   plain loop's time.
+   plain loop's time;
+7. deletes and filters at the index layer, the path under VecTable's
+   filtered queries and deletes (each masked form of the loop kernel must
+   launch in it):
+   - filtered HNSW on phase 4's graph, the whole batch under one mask as
+     VecTable._hnsw passes it: masks of 50% (even ids), 10% (id % 10 == 0)
+     and 1% (id % 100 == 0) at ef 64 and 256, k=10; every returned id must
+     pass its mask; recall@10 against the exact masked scan and QPS, with
+     recall >= 0.90 asserted at 50%, ef=256 (tests/test_table.py's floor);
+   - the per-query coded exact scan (BASELINE config 5 at the index
+     layer): 1000 tenants, code = id % 1000, 256 queries each with its own
+     tenant plus one of code -2 (no tenant); ids and distances must equal
+     a masked exact scan per tenant; QPS;
+   - deletes on a copy of phase 4's graph: every 10th id and the entry
+     point; delete_ids' time; no edge may point at a deleted id, the entry
+     point must be live at the highest live level, count must be n minus
+     the deleted; recall@10 of unfiltered search at ef 48 / 64 against the
+     exact scan of the live rows, and of a 10% filtered search
+     (id % 10 == 5) after the deletion;
+   - filtered search on phase 6's graphs at the 10% mask: config 3 (int8
+     search + f32 rerank) and config 4 as VecTable._binary_rerank runs it
+     (filtered Hamming search, then expand_rerank_topk with the mask);
+3d. masked loop forms, on phase 7's graphs and 10% masks at every shape
+   phase 7 gives them (256 queries, E=1): f32 at k=10 (KP=32) and EF 64
+   and 256, int8 and words at k=48 (KP=128), EF=64, max_iters=64;
+   beam_loop(node_mask=) against beam_loop_plain(node_mask=); int8
+   squared L2 and Hamming exactly equal (result ids and distances,
+   iterations), f32 held to phase 3b's tolerances; each form's device
+   time per launch beside its bound (the distinct rows, as phase 3b counts
+   them, plus the mask bytes they read) and the plain loop's time.
 
+Device times per launch are torch.profiler's; where its trace kept no
+launch of a kernel, they are CUDA events around the launches, and the
+kernels line says so ("ms_source": "cuda_events" in place of "profiler").
 The last two lines are a JSON line with every kernel's numbers and the
 JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -77,10 +111,20 @@ N, D, NQ, REPS, K = 100_000, 768, 256, 5, 10
 # BASELINE.md configs 3 and 4 (1024 dims; the sources run 1M and 10M rows)
 QD = 1024
 GEN_CHUNK = 250_000  # scripts/probe_10m_binary.py's rows per seeded chunk
+# the loop kernel's name in a profiler trace, and its C entry point
+_LOOP_KERNEL = ("beam_search_level0_kernel", "tpuvec_beam_search_level0")
 
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _log_ptxas(source: str, report: str) -> None:
+    """ptxas's lines on each kernel of ``source`` as it wrote them: the
+    (mangled) entry's name, then its stack and spills and its registers."""
+    for line in report.splitlines():
+        if "entry function" in line or "spill" in line or "Used" in line:
+            _log(f"build: ptxas {source}.cu: {line.strip()}")
 
 
 def _card_line() -> str:
@@ -133,9 +177,41 @@ def _time_ms(fn, reps: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int, kernel: str) -> float:
-    """Device time per launch of the CUDA kernel whose name contains
-    ``kernel``, from a torch.profiler trace of ``reps`` calls of ``fn``."""
+def _launch_ms(fn, reps: int, entry: str) -> float:
+    """Time per launch from CUDA events recorded on the stream right before
+    and after each call of the C entry point ``entry`` inside ``fn``: the
+    kernel's time on the card plus its launch latency, no host work."""
+    import torch
+    from tpuvec_torch import kernels
+
+    lib = kernels.load("beam_update")
+    launch, spans = getattr(lib, entry), []
+
+    def timed(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = launch(*args)
+        end.record()
+        spans.append((start, end))
+        return rc
+
+    setattr(lib, entry, timed)
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        setattr(lib, entry, launch)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / len(spans)
+
+
+def _device_ms(fn, reps: int, kernel: str, entry: str) -> tuple[float, str]:
+    """(ms, source): the device time per launch of the CUDA kernel whose
+    name contains ``kernel``, from a torch.profiler trace of ``reps`` calls
+    of ``fn`` (source "profiler"). The trace can keep fewer launches than
+    ran (at 1M rows, from phase 3c on, one in ten or none): then the time
+    by CUDA events around the launches of C entry ``entry`` is logged
+    beside it, and taken (source "cuda_events") when the trace kept none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -147,11 +223,17 @@ def _device_ms(fn, reps: int, kernel: str) -> float:
         torch.cuda.synchronize()
     hits = [ev for ev in prof.key_averages() if kernel in ev.key]
     count = sum(ev.count for ev in hits)
+    if count == reps:
+        return sum(ev.device_time_total for ev in hits) / count / 1e3, "profiler"
+    ev_ms = _launch_ms(fn, reps, entry)
     if count == 0:
-        raise AssertionError(f"profiler saw no launch of {kernel} in {reps} calls")
-    if count != reps:  # the trace can drop an event; average over those it kept
-        _log(f"kernels: profiler kept {count} of {reps} launches of {kernel}")
-    return sum(ev.device_time_total for ev in hits) / count / 1e3
+        _log(f"kernels: profiler kept no launch of {kernel} in {reps} calls; CUDA events "
+             f"around the launch: {ev_ms:.4f} ms")
+        return ev_ms, "cuda_events"
+    ms = sum(ev.device_time_total for ev in hits) / count / 1e3
+    _log(f"kernels: profiler kept {count} of {reps} launches of {kernel}: {ms:.4f} ms; CUDA "
+         f"events around the launch: {ev_ms:.4f} ms")
+    return ms, "profiler"
 
 
 def _beam_bound(args, outs, e):
@@ -192,12 +274,14 @@ def check_beam_kernel(torch, device):
             if ties:
                 _log(f"kernels: beam_update == plain with ties and -1 ids at B={b} EF={efp} W={w} E={e}")
                 continue
-            ms = _device_ms(lambda: beam_update(*args, n_expand=e), 100, "beam_update_kernel")
+            ms, ms_source = _device_ms(lambda: beam_update(*args, n_expand=e), 100,
+                                       "beam_update_kernel", "tpuvec_beam_update")
             call_ms = _time_ms(lambda: beam_update(*args, n_expand=e), 200)
             plain_ms = _time_ms(lambda: beam_update_plain(*args, n_expand=e), 20)
             bound_ms, bound_by = _beam_bound(args, ker, e)
-            shapes.append(dict(B=b, EF=efp, W=w, E=e, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+            shapes.append(dict(B=b, EF=efp, W=w, E=e, ms=ms, ms_source=ms_source, call_ms=call_ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               max_abs_err=err))
             _log(
                 f"kernels: beam_update == plain at B={b} EF={efp} W={w} E={e}: "
                 f"device {ms:.5f} ms per launch (bound {bound_ms:.5f} ms by {bound_by}); "
@@ -294,7 +378,7 @@ def run_main_path(torch, device, n):
     _log(f"main: best {best['qps']:.0f} QPS at recall@10 {best['recall']:.4f} (ef={best['ef']}); "
          f"kernel launches: build {build_launches}, search {search_launches}")
     return dict(launches=launches, cfg=cfg, xp=xp, state=state, q=rep_qs[0], ef=best["ef"],
-                data=data, n=n, gt=gt, qp=qp)
+                data=data, n=n, gt=gt, qp=qp, rep_qs=rep_qs)
 
 
 def _recall(ids, gt) -> float:
@@ -330,15 +414,16 @@ def _loop_visits(torch, args, kw):
     return torch.cat(fresh_ids), torch.cat(adj_ids), result
 
 
-def _loop_bound(torch, args, fresh, adj, outs):
+def _loop_bound(torch, args, fresh, adj, outs, masked=False):
     """(bound_ms, bound_by, distinct bytes, per-visit bytes) of one loop
     launch: the distinct vector and adjacency rows the batch's loop reads,
-    each once, plus q, the beam and frontier in and the outputs, against the
-    HBM rate; two multiply-adds per element of every fresh row against the
-    float32 rate (int8 rows: the int8 rate; words: three operations a word
-    at the float32 rate)."""
+    each once (``masked``: and the mask byte of each distinct fresh id),
+    plus q, the beam and frontier (and result buffer) in and the outputs,
+    against the HBM rate; two multiply-adds per element of every fresh row
+    against the float32 rate (int8 rows: the int8 rate; words: three
+    operations a word at the float32 rate)."""
     q, vectors, adj0 = args[:3]
-    row_v = vectors.shape[1] * vectors.element_size()
+    row_v = vectors.shape[1] * vectors.element_size() + (1 if masked else 0)
     row_a = adj0.shape[1] * adj0.element_size()
     small = sum(t.numel() * t.element_size() for t in (q, *args[3:], *outs))
     distinct = torch.unique(fresh).numel() * row_v + torch.unique(adj).numel() * row_a + small
@@ -448,14 +533,16 @@ def check_loop_kernel(torch, device, run):
                 f"beam_loop {label}: top-10 ids equal {same:.4f} (< 0.99?), recall@10 "
                 f"{r_k:.4f} vs plain {r_p:.4f} (more than 0.002 apart?)"
             )
-        ms = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10, "beam_search_level0_kernel")
+        ms, ms_source = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10,
+                                   *_LOOP_KERNEL)
         call_ms = _time_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10)
         plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
         iters_t = torch.empty((b,), dtype=torch.int32)
         bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj, (kd, ki, iters_t))
         shapes.append(dict(
             B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_it, plain_iters=p_it,
-            ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            ms=ms, ms_source=ms_source, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by,
             distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err,
             top10_same=same, recall=r_k, plain_recall=r_p,
         ))
@@ -744,8 +831,8 @@ def run_quantized(torch, device, n):
                          lambda ii, qqf: expand_rerank_topk(shadow, state.adj0, ii, ii >= 0, qqf,
                                                             metric=cos, k=K, filter_mask=live))
         out[form] = dict(name=name, cfg=cfg, state=state, qpool=qpool, launches=launches[form],
-                         build_s=build_s, sweep=sweep)
-        del x, xp, xf, shadow, reps_in, valid
+                         build_s=build_s, sweep=sweep, xf=xf, shadow=shadow, reps_in=reps_in, n=n)
+        del x, xp, valid
         torch.cuda.empty_cache()
     return out
 
@@ -797,14 +884,15 @@ def check_quantized_loops(torch, device, qruns):
                                                when="over the full loop")
                     if k_it != p_it:
                         raise AssertionError(f"beam_loop {label}: iterations {k_it} vs plain {p_it}")
-                ms = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10,
-                                "beam_search_level0_kernel")
+                ms, ms_source = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters),
+                                           10, *_LOOP_KERNEL)
                 plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
                 iters_t = torch.empty((b,), dtype=torch.int32)
                 bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj, (kd, ki, iters_t))
                 shapes[form].append(dict(
                     metric=mlabel, B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_it,
-                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by,
                     distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err,
                 ))
                 same = "exactly equal to plain" if tol == 0.0 else f"within {tol:g} of plain (max err {err:.2e})"
@@ -813,6 +901,259 @@ def check_quantized_loops(torch, device, qruns):
                     f"per launch (bound {bound_ms:.5f} ms by {bound_by}: {distinct / 1e6:.2f} MB "
                     f"distinct, {per_visit / 1e6:.2f} MB per visit); plain loop {plain_ms:.2f} ms"
                 )
+    return shapes
+
+
+def _filtered_point(torch, label, fn, reps_in, gt, mask, n):
+    """Run ``fn(*rep)`` on the first rep (scored) and time it over the
+    others; every returned id must pass ``mask``, slots past the ones found
+    must be (inf, -1), found distances ascending. Returns (recall@10
+    against ``gt``, QPS, share of the k slots filled)."""
+    d0, i0 = fn(*reps_in[0])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for ri in reps_in[1:]:
+        fn(*ri)
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / (len(reps_in) - 1)
+    found = i0 >= 0
+    if d0.shape != (NQ, K) or (i0 >= n).any() or not torch.equal(found, torch.isfinite(d0)):
+        raise AssertionError(f"filtered: {label}: output malformed")
+    if not bool(mask[i0[found].long()].all()):
+        raise AssertionError(f"filtered: {label}: an id that fails the mask was returned")
+    if bool((torch.diff(torch.where(found, d0, math.inf), dim=1) < 0).any()):
+        raise AssertionError(f"filtered: {label}: distances not ascending")
+    recall, fill = _recall(i0.cpu().numpy(), gt), float(found.float().mean())
+    _log(f"filtered: {label}: recall@10={recall:.4f} (slots filled {fill:.4f}) "
+         f"{dt * 1e3:.2f} ms/batch {NQ / dt:.0f} QPS")
+    return dict(label=label, recall=recall, qps=NQ / dt, fill=fill)
+
+
+def _copy_state(torch, state):
+    """A copy of ``state`` that delete_ids can edit: every tensor cloned
+    but the vectors, which it does not write."""
+    from tpuvec_torch.index.graph import GraphState
+
+    return GraphState(**{f.name: getattr(state, f.name) if f.name == "vectors"
+                         else getattr(state, f.name).clone() for f in dataclasses.fields(GraphState)})
+
+
+def run_filtered(torch, device, run, qruns):
+    """Phase 7: deletes and filters at the index layer (the module
+    docstring). Returns the points, the masked forms' launches in this
+    phase, and the masks phase 3d runs under."""
+    from tpuvec_torch.index.bruteforce import bruteforce_knn, bruteforce_knn_internal
+    from tpuvec_torch.index.build import delete_ids
+    from tpuvec_torch.index.search import search_graph
+    from tpuvec_torch.ops.beam import beam_loop, beam_update
+    from tpuvec_torch.ops.rerank import expand_rerank_topk, rerank_topk
+    from tpuvec_torch.types import DistanceMetric
+
+    cfg, state, n, xp = run["cfg"], run["state"], run["n"], run["xp"]
+    reps_in = [(q,) for q in (run["qp"], *run["rep_qs"])]
+    ids = torch.arange(cfg.cap, device=device)
+    live = ids < n
+    masks = {"50%": live & (ids % 2 == 0), "10%": live & (ids % 10 == 0),
+             "1%": live & (ids % 100 == 0)}
+    _log(f"filtered: masks over {n} rows: " + ", ".join(
+        f"{name} {int(m.sum())} rows" for name, m in masks.items()))
+    # ground truth first, so that the counts below hold only the path's launches
+    gts = {name: bruteforce_knn(run["qp"], xp, m[:n], metric=cfg.graph_metric, k=K,
+                                normalized=True)[1].cpu().numpy()
+           for name, m in masks.items()}
+
+    beam_update.launches = beam_loop.launches = 0
+    beam_loop.form_launches = dict.fromkeys(beam_loop.form_launches, 0)
+    points = []
+    for name, mask in masks.items():
+        for ef in (64, 256):
+            pt = _filtered_point(
+                torch, f"f32 {name} mask ef={ef}",
+                lambda q, mask=mask, ef=ef: search_graph(cfg, state, q, k=K, ef=ef, filter_mask=mask),
+                reps_in, gts[name], mask, n)
+            points.append(pt)
+            if name == "50%" and ef == 256 and pt["recall"] < 0.90:
+                raise AssertionError(f"filtered recall@10 {pt['recall']:.4f} < 0.90 at 50%, ef=256")
+
+    # the coded exact scan: 1000 tenants, one tenant a query, one query of none
+    codes = torch.where(live, ids % 1000, -1).to(torch.int32)[:n]
+    tenants = np.random.default_rng(7).choice(1000, NQ, replace=False)
+    q_codes = torch.tensor([*tenants.tolist(), -2], dtype=torch.int32, device=device)
+    valid = live[:n]
+    kw = dict(metric=cfg.graph_metric, k=K, normalized=True)
+
+    def coded(q):
+        return bruteforce_knn_internal(torch.cat([q, q[:1]]), xp, valid, slot_codes=codes,
+                                       q_codes=q_codes, **kw)
+
+    d_c, i_c = coded(run["qp"])
+    q_all = torch.cat([run["qp"], run["qp"][:1]])
+    for b, c in enumerate(tenants.tolist()):
+        d_r, i_r = bruteforce_knn_internal(q_all, xp, valid & (codes == c), **kw)
+        if not (torch.equal(i_c[b], i_r[b]) and torch.equal(d_c[b], d_r[b])):
+            raise AssertionError(f"coded scan: query {b} (tenant {c}) differs from its masked scan")
+    per_tenant = torch.bincount(codes[codes >= 0].long(), minlength=1000)
+    want = per_tenant[torch.from_numpy(tenants).to(device)].clamp_max(K)
+    if bool((i_c[NQ] >= 0).any()) or not torch.equal((i_c[:NQ] >= 0).sum(1), want):
+        raise AssertionError("coded scan: a query of code -2 found rows, or a tenant came back short")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for (q,) in reps_in[1:]:
+        coded(q)
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / (len(reps_in) - 1)
+    coded_pt = dict(label="coded exact scan, 1000 tenants", qps=(NQ + 1) / dt, ms=dt * 1e3)
+    points.append(coded_pt)
+    _log(f"filtered: coded exact scan ({NQ} tenants of 1000 + one of code -2) equals the masked "
+         f"scan per tenant; {dt * 1e3:.2f} ms/batch {(NQ + 1) / dt:.0f} QPS")
+
+    # deletes on a copy of the graph: every 10th id and the entry point
+    g = _copy_state(torch, state)
+    dels = torch.unique(torch.cat([torch.arange(0, n, 10, device=device, dtype=torch.int32),
+                                   g.entry_point.view(1)]))
+    delete_ids(cfg, g, torch.full((1,), -1, dtype=torch.int32, device=device))  # warm-up, no edit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    delete_ids(cfg, g, dels)
+    torch.cuda.synchronize()
+    del_ms = (time.perf_counter() - t0) * 1e3
+    gone = torch.zeros(cfg.cap, dtype=torch.bool, device=device)
+    gone[dels.long()] = True
+    for adj in (g.adj0, g.upper_adj):
+        if bool((gone[adj.clamp_min(0).long()] & (adj >= 0)).any()):
+            raise AssertionError("delete: an edge still points at a deleted id")
+    ep, lv = int(g.entry_point), g.levels
+    if ep < 0 or bool(gone[ep]) or int(lv[ep]) != int(g.entry_level) or int(g.entry_level) != int(lv.max()):
+        raise AssertionError(f"delete: entry point {ep} (level {int(g.entry_level)}) is not live at "
+                             f"the highest live level {int(lv.max())}")
+    if int(g.count) != n - dels.numel():
+        raise AssertionError(f"delete: count {int(g.count)} != {n} - {dels.numel()}")
+    _log(f"filtered: delete_ids of {dels.numel()} ids (every 10th and the entry point) in "
+         f"{del_ms:.2f} ms; no edge points at them, the entry point {ep} is live at the highest "
+         f"level {int(g.entry_level)}, count {int(g.count)}")
+    alive = (lv >= 0)
+    gt_live = bruteforce_knn(run["qp"], xp, alive[:n], **kw)[1].cpu().numpy()
+    for ef in (48, 64):
+        points.append(_filtered_point(
+            torch, f"f32 after delete, unfiltered ef={ef}",
+            lambda q, ef=ef: search_graph(cfg, g, q, k=K, ef=ef), reps_in, gt_live, alive, n))
+    m_after = alive & (ids % 10 == 5)
+    gt_after = bruteforce_knn(run["qp"], xp, m_after[:n], **kw)[1].cpu().numpy()
+    points.append(_filtered_point(
+        torch, "f32 after delete, 10% mask (id % 10 == 5) ef=64",
+        lambda q: search_graph(cfg, g, q, k=K, ef=64, filter_mask=m_after),
+        reps_in, gt_after, m_after, n))
+    del g
+
+    # the quantized graphs at the 10% mask, as VecTable runs them
+    cos = DistanceMetric.COSINE
+    qmasks = {}
+    for form, qrun in qruns.items():
+        qcfg, qstate, qn = qrun["cfg"], qrun["state"], qrun["n"]
+        qids = torch.arange(qcfg.cap, device=device)
+        qlive = qids < qn
+        mask = qlive & (qids % 10 == 0)
+        qmasks[form] = mask
+        gt = bruteforce_knn(qrun["reps_in"][0][1], qrun["xf"], mask[:qn], metric=cos,
+                            k=K)[1].cpu().numpy()
+        shadow = qrun["shadow"]
+        if form == "int8":
+            def fn(qq, qqf, qcfg=qcfg, qstate=qstate, mask=mask, shadow=shadow):
+                _, ii = search_graph(qcfg, qstate, qq, k=48, ef=64, max_iters=64, filter_mask=mask)
+                ok = (ii >= 0) & mask[ii.clamp_min(0).long()]
+                return rerank_topk(shadow, ii, ok, qqf, metric=cos, k=K)
+            label = "config 3 int8 10% mask ef=64 C=48 + f32 rerank"
+        else:
+            def fn(qq, qqf, qcfg=qcfg, qstate=qstate, mask=mask, shadow=shadow, qlive=qlive):
+                _, ii = search_graph(qcfg, qstate, qq, k=48, ef=64, max_iters=64, filter_mask=mask)
+                ok = (ii >= 0) & mask[ii.clamp_min(0).long()]
+                return expand_rerank_topk(shadow, qstate.adj0, ii, ok, qqf, metric=cos, k=K,
+                                          filter_mask=qlive & mask)
+            label = "config 4 Hamming 10% mask ef=64 C=48 + 1-hop expand + int8 rerank"
+        points.append(_filtered_point(torch, label, fn, qrun["reps_in"], gt, mask, qn))
+
+    launches = dict(beam_loop.form_launches)
+    for form in ("f32+mask", "int8+mask", "words+mask"):
+        if launches[form] == 0:
+            raise AssertionError(f"filtered: the loop kernel's {form} form never launched: {launches}")
+    if beam_update.launches:
+        raise AssertionError(f"filtered: beam_update launched {beam_update.launches} times")
+    _log(f"filtered: loop kernel launches in this phase: {launches}")
+    return dict(points=points, launches=launches, del_ms=del_ms, n_deleted=dels.numel(),
+                masks={"f32": masks["10%"], **qmasks})
+
+
+def check_masked_loops(torch, device, run, qruns, filt):
+    """Phase 3d: the masked forms of the loop kernel against
+    beam_loop_plain(node_mask=) under phase 7's 10% masks, at every shape
+    phase 7 gives them: f32 on phase 4's graph at k=10 (KP=32) and ef 64
+    and 256; int8 (config 3) and words (config 4) on phase 6's graphs at
+    k=48 (KP=128), ef=64, max_iters=64."""
+    from tpuvec_torch.index.bruteforce import bruteforce_knn
+    from tpuvec_torch.index.graph import prepare_vectors
+    from tpuvec_torch.index.search import default_max_iters, descend_to_level1, seed_beam
+    from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain
+
+    # form -> (config, state, queries, [(ef, k_out, max_iters), ...])
+    graphs = {"f32": (run["cfg"], run["state"], run["qp"],
+                      [(ef, K, default_max_iters(ef, 1)) for ef in (64, 256)])}
+    for form, qrun in qruns.items():
+        graphs[form] = (qrun["cfg"], qrun["state"],
+                        prepare_vectors(qrun["cfg"], qrun["qpool"][:NQ], device=device),
+                        [(64, 48, 64)])
+    shapes = {}
+    for form, (cfg, state, q, cases) in graphs.items():
+        mask = filt["masks"][form]
+        kw = dict(metric=cfg.graph_metric, normalized=cfg.normalized, node_mask=mask)
+        seeds = descend_to_level1(cfg, state, q)
+        if form == "f32":
+            gt = bruteforce_knn(q, run["xp"], mask[: run["n"]], metric=cfg.graph_metric, k=K,
+                                normalized=True)[1].cpu().numpy()
+        shapes[form] = []
+        for ef, k_out, max_iters in cases:
+            e = 1
+            args = (q, state.vectors, state.adj0,
+                    *seed_beam(*seeds, ef=ef, n_expand=e, node_mask=mask, k_out=k_out))
+            b, efp, kp, dp = q.shape[0], args[3].shape[1], args[8].shape[1], q.shape[1]
+            label = f"{form}+mask B={b} EF={efp} W={e * cfg.max_m0} E={e} KP={kp} Dp={dp}"
+            kd, ki, k_it = beam_loop(*args, **kw, max_iters=max_iters)
+            fresh, adj, (pd, pi, p_it) = _loop_visits(torch, args, dict(kw, max_iters=max_iters))
+            extra = {}
+            if form == "f32":
+                one_k = beam_loop(*args, **kw, max_iters=1)
+                one_p = beam_loop_plain(*args, **kw, max_iters=1)
+                err = _check_one_iteration(torch, label, one_k[0], one_k[1], one_p[0], one_p[1])
+                same = float((ki[:, :K] == pi[:, :K]).float().mean())
+                r_k, r_p = _recall(ki[:, :K].cpu().numpy(), gt), _recall(pi[:, :K].cpu().numpy(), gt)
+                if same < 0.99 or abs(r_k - r_p) > 0.002:
+                    raise AssertionError(
+                        f"beam_loop {label}: top-10 ids equal {same:.4f} (< 0.99?), recall@10 "
+                        f"{r_k:.4f} vs plain {r_p:.4f} (more than 0.002 apart?)")
+                extra = dict(top10_same=same, recall=r_k, plain_recall=r_p)
+                agree = (f"1 iteration max err {err:.2e}; full loop top-10 ids equal {same:.4f}, "
+                         f"recall@10 {r_k:.4f} vs plain {r_p:.4f}")
+            else:
+                if not (torch.equal(kd, pd) and torch.equal(ki, pi) and k_it == p_it):
+                    raise AssertionError(
+                        f"beam_loop {label}: not exactly equal to plain: ids differ in "
+                        f"{int((ki != pi).sum())} slots, iterations {k_it} vs {p_it}")
+                err, agree = 0.0, "exactly equal to plain"
+            ms, ms_source = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10,
+                                       *_LOOP_KERNEL)
+            plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
+            iters_t = torch.empty((b,), dtype=torch.int32)
+            bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj,
+                                                                  (kd, ki, iters_t), masked=True)
+            shapes[form].append(dict(
+                B=b, EF=efp, W=e * cfg.max_m0, E=e, KP=kp, Dp=dp, max_iters=max_iters, iters=k_it,
+                plain_iters=p_it, ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by,
+                distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err, **extra,
+            ))
+            _log(f"kernels: beam_loop {label}: {agree}, {k_it} iterations (plain {p_it}); device "
+                 f"{ms:.4f} ms per launch (bound {bound_ms:.5f} ms by {bound_by}: "
+                 f"{distinct / 1e6:.2f} MB distinct, {per_visit / 1e6:.2f} MB per visit); plain "
+                 f"loop {plain_ms:.2f} ms")
     return shapes
 
 
@@ -840,6 +1181,8 @@ def main() -> int:
     built = kernels.build_all()
     entry_points = {name: [fn for fn in kernels.SOURCES[name] if "cuda_error" not in fn] for name in built}
     _log(f"build: {entry_points} compiled and loaded in {time.time() - t0:.1f}s")
+    for name in built:
+        _log_ptxas(name, kernels.ptxas_report(name))
 
     update_shapes = check_beam_kernel(torch, device)
     run = run_main_path(torch, device, args.n)
@@ -847,6 +1190,8 @@ def main() -> int:
     trace_main_path(torch, device, run)
     qruns = run_quantized(torch, device, args.n)
     qshapes = check_quantized_loops(torch, device, qruns)
+    filt = run_filtered(torch, device, run, qruns)
+    mshapes = check_masked_loops(torch, device, run, qruns, filt)
 
     def entry(name, replaces, launches, shapes, main_shape):
         return {
@@ -857,6 +1202,7 @@ def main() -> int:
             "launches": launches,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": main_shape["ms"],
+            "ms_source": main_shape["ms_source"],
             "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],
@@ -875,6 +1221,14 @@ def main() -> int:
               qshapes["int8"][1]),
         entry("beam_search_level0[words]", loop_src, qruns["words"]["launches"], qshapes["words"],
               qshapes["words"][1]),
+    ]
+    # the masked forms under the 10% mask; main shape: f32's at ef=64,
+    # int8's and words' the one shape of configs 3 and 4 (k=48, ef=64)
+    masked_src = "tpuvec/index/search.py:295-316 + 363-383"
+    kernels_line += [
+        entry(f"beam_search_level0[{form}+mask]", masked_src, filt["launches"][f"{form}+mask"],
+              mshapes[form], mshapes[form][0])
+        for form in ("f32", "int8", "words")
     ]
     _log(card)
     _log(json.dumps({"kernels": kernels_line}))

@@ -63,6 +63,25 @@
 // the kernel equals beam_loop_plain bit for bit; float sums run in another
 // order than the plain loop's bmm.
 //
+// Each row form also has a masked form (template flag kMasked), the filtered
+// search: the JAX package's body_m and its post-loop dedup and sort
+// (tpuvec/index/search.py:295-316 and :363-383), which that package runs in
+// XLA, not Pallas. The beam and the frontier run exactly as in the unmasked
+// form. A second buffer of KP slots (Results, in shared memory after the
+// Step's arrays, seeded by the caller) collects the nodes that pass the
+// node mask: each iteration, before the beam's merge, the fresh window is
+// copied with every entry whose mask byte is 0 set to (+inf, -1), and the
+// same stable merge (buffer before window) keeps the KP smallest. The mask
+// is one byte a node, shared by the batch and read with __ldg: at 1M nodes
+// it is 1 MB, so it stays in the 50 MB L2. The buffer is not deduplicated
+// inside the loop (a node evicted from the beam and met again is collected
+// twice, as in the JAX package); after the loop each block keeps the first
+// occurrence of each id and writes the KP slots ranked by (distance,
+// position), the stable sort. The flag is a template parameter so that the
+// unmasked forms compile as before: under __launch_bounds__(256, 4) every
+// form is held at 64 registers, and any code the unmasked forms do not run
+// stays out of them.
+//
 // Why a per-block loop equals the lock-step loops of the JAX package and of
 // beam_loop_plain: those advance the whole batch until every query is
 // inactive or the batch has run max_iters iterations. An inactive query's
@@ -168,6 +187,33 @@ __host__ __device__ size_t layout(unsigned char* base, int ef, int w, int e,
   return off;
 }
 
+// The masked loop kernel's result buffer, carved after the Step's arrays.
+struct Results {
+  float* d;    // [KP] buffer in, ascending
+  int32_t* i;  // [KP]
+  float* od;   // [KP] buffer out
+  int32_t* oi; // [KP]
+  float* wd;   // [W] window distances, +inf where the node fails the mask
+  int32_t* wi; // [W] window ids, -1 where the node fails the mask
+};
+
+// Carves the Results at byte `off` (rounded up to 16) of the shared
+// memory; returns the bytes needed in all, and fills `r` when `base` is not
+// null.
+__host__ __device__ size_t layout_results(unsigned char* base, size_t off, int kp, int w,
+                                          Results* r) {
+  off = (off + 15) / 16 * 16;
+  Results t;
+  t.d = reinterpret_cast<float*>(take(base, &off, 4 * kp));
+  t.od = reinterpret_cast<float*>(take(base, &off, 4 * kp));
+  t.i = reinterpret_cast<int32_t*>(take(base, &off, 4 * kp));
+  t.oi = reinterpret_cast<int32_t*>(take(base, &off, 4 * kp));
+  t.wd = reinterpret_cast<float*>(take(base, &off, 4 * w));
+  t.wi = reinterpret_cast<int32_t*>(take(base, &off, 4 * w));
+  if (base) *r = t;
+  return off;
+}
+
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 __device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
 
@@ -236,6 +282,9 @@ __device__ void dedup(const Step& s, int ef, int w, int e) {
 
 // 2. stable merge of the beam (s.d, s.i, s.x) and the window (s.wd, s.wi)
 //    into the EF smallest (s.od, s.oi, s.ox); +inf slots marked expanded.
+//    kFlags false: the expanded flags are neither read nor written (the
+//    masked form's result buffer, which has none).
+template <bool kFlags = true>
 __device__ void merge(const Step& s, int ef, int w) {
   for (int j = threadIdx.x; j < w; j += blockDim.x) {
     const float dj = s.wd[j];
@@ -254,7 +303,7 @@ __device__ void merge(const Step& s, int ef, int w) {
     if (slot < ef) {
       s.od[slot] = dj;
       s.oi[slot] = s.i[j];
-      s.ox[slot] = (s.x[j] || !isfinite(dj)) ? 1 : 0;
+      if constexpr (kFlags) s.ox[slot] = (s.x[j] || !isfinite(dj)) ? 1 : 0;
     }
   }
   for (int j = threadIdx.x; j < w; j += blockDim.x) {
@@ -263,7 +312,7 @@ __device__ void merge(const Step& s, int ef, int w) {
     if (slot < ef) {
       s.od[slot] = dj;
       s.oi[slot] = s.wi[j];
-      s.ox[slot] = isfinite(dj) ? 0 : 1;
+      if constexpr (kFlags) s.ox[slot] = isfinite(dj) ? 0 : 1;
     }
   }
   __syncthreads();
@@ -470,7 +519,11 @@ __device__ __forceinline__ float row_distance(const typename R::Elem* __restrict
 // shape (B=1024, ~8 blocks per SM) then runs in fewer waves. Left to
 // itself ptxas gives each row form ~80 registers and 3 blocks an SM, which
 // is slower there (chip_smoke.py phase 3b; PERF.md has the times).
-template <class R>
+// Unmasked (kMasked false): node_mask, res_d and res_i are unused and
+// out_d / out_i receive the beam [B, EF]. Masked: res_d / res_i are the
+// seeded result buffers [B, KP] and out_d / out_i receive the final
+// results [B, KP].
+template <class R, bool kMasked>
 __global__ void __launch_bounds__(kThreads, 4)
 beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
                           const typename R::Elem* __restrict__ vectors,
@@ -480,10 +533,13 @@ beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
                           const uint8_t* __restrict__ beam_x,
                           const int32_t* __restrict__ cand,
                           const uint8_t* __restrict__ active,
+                          const uint8_t* __restrict__ node_mask,
+                          const float* __restrict__ res_d,
+                          const int32_t* __restrict__ res_i,
                           float* __restrict__ out_d,
                           int32_t* __restrict__ out_i,
                           int32_t* __restrict__ iters,
-                          int ef, int m0, int e, int dp, int metric, int max_iters) {
+                          int ef, int m0, int e, int dp, int metric, int max_iters, int kp) {
   using Elem = typename R::Elem;
   using Vec = typename R::Vec;
   using Acc = typename R::Acc;
@@ -491,7 +547,8 @@ beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
   const int w = e * m0;
   Step s;
   unsigned char* qrow;
-  layout(smem, ef, w, e, sizeof(Elem) * dp, &s, &qrow);
+  [[maybe_unused]] const size_t step_bytes = layout(smem, ef, w, e, sizeof(Elem) * dp, &s, &qrow);
+  [[maybe_unused]] Results r;
   Elem* sq = reinterpret_cast<Elem*>(qrow);
   const int qb = blockIdx.x;
   const int tid = threadIdx.x;
@@ -508,6 +565,14 @@ beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
   }
   for (int k = tid; k < e; k += blockDim.x) s.cand[k] = cand[static_cast<size_t>(qb) * e + k];
   if (tid == 0) *s.active = active[qb] ? 1 : 0;
+  if constexpr (kMasked) {
+    layout_results(smem, step_bytes, kp, w, &r);
+    const size_t orr = static_cast<size_t>(qb) * kp;
+    for (int j = tid; j < kp; j += blockDim.x) {
+      r.d[j] = res_d[orr + j];
+      r.i[j] = res_i[orr + j];
+    }
+  }
   __syncthreads();
   if (warp == 0) {
     const Acc acc = warp_sum(R::norm_part(sq, dp, lane));
@@ -543,6 +608,26 @@ beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
     }
     __syncthreads();
 
+    if constexpr (kMasked) {
+      // the fresh window with the nodes failing the mask at (+inf, -1),
+      // merged into the result buffer by the beam's stable merge (which
+      // shares the window scratch sorted_wd / wrank with the beam's)
+      for (int j = tid; j < w; j += blockDim.x) {
+        const int32_t id = s.wi[j];
+        const bool allow = id >= 0 && __ldg(node_mask + id) != 0;
+        r.wd[j] = allow ? s.wd[j] : INFINITY;
+        r.wi[j] = allow ? id : -1;
+      }
+      __syncthreads();
+      Step rs = s;
+      rs.d = r.d; rs.i = r.i; rs.x = nullptr;
+      rs.od = r.od; rs.oi = r.oi; rs.ox = nullptr;
+      rs.wd = r.wd; rs.wi = r.wi;
+      merge<false>(rs, kp, w);
+      float* rd = r.d; r.d = r.od; r.od = rd;
+      int32_t* ri = r.i; r.i = r.oi; r.oi = ri;
+    }
+
     merge(s, ef, w);
     frontier(s, ef, e);
     float* td = s.d; s.d = s.od; s.od = td;
@@ -551,9 +636,35 @@ beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
     ++it;
   }
 
-  for (int j = tid; j < ef; j += blockDim.x) {
-    out_d[ob + j] = s.d[j];
-    out_i[ob + j] = s.i[j];
+  if constexpr (kMasked) {
+    // keep the first occurrence of each id, then write the slots ranked by
+    // (distance, position): the stable ascending sort
+    for (int j = tid; j < kp; j += blockDim.x) {
+      const int32_t id = r.i[j];
+      bool dup = false;
+      if (id >= 0) {
+        for (int k = 0; k < j; ++k) dup |= r.i[k] == id;
+      }
+      r.od[j] = dup ? INFINITY : r.d[j];
+      r.oi[j] = dup ? -1 : id;
+    }
+    __syncthreads();
+    const size_t orr = static_cast<size_t>(qb) * kp;
+    for (int j = tid; j < kp; j += blockDim.x) {
+      const float dj = r.od[j];
+      int rank = 0;
+      for (int k = 0; k < kp; ++k) {
+        const float dk = r.od[k];
+        rank += (dk < dj) || (dk == dj && k < j);
+      }
+      out_d[orr + rank] = dj;
+      out_i[orr + rank] = r.oi[j];
+    }
+  } else {
+    for (int j = tid; j < ef; j += blockDim.x) {
+      out_d[ob + j] = s.d[j];
+      out_i[ob + j] = s.i[j];
+    }
   }
   if (tid == 0) iters[qb] = it;
 }
@@ -583,23 +694,35 @@ int allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-// Launches the loop kernel of row form R; see tpuvec_beam_search_level0.
-template <class R>
+// Launches the loop kernel of row form R, masked or not; see
+// tpuvec_beam_search_level0.
+template <class R, bool kMasked>
 int launch_level0(const void* q, const void* vectors, const void* adj0, const void* beam_d,
                   const void* beam_i, const void* beam_x, const void* cand, const void* active,
+                  const void* node_mask, const void* res_d, const void* res_i,
                   void* out_d, void* out_i, void* iters, int b, int ef, int m0, int e, int dp,
-                  int metric, int max_iters, cudaStream_t stream) {
+                  int metric, int max_iters, int kp, cudaStream_t stream) {
   using Elem = typename R::Elem;
-  const size_t smem = layout(nullptr, ef, e * m0, e, sizeof(Elem) * dp, nullptr, nullptr);
-  if (const int rc = allow_smem(beam_search_level0_kernel<R>, smem)) return rc;
-  beam_search_level0_kernel<R><<<b, kThreads, smem, stream>>>(
+  size_t smem = layout(nullptr, ef, e * m0, e, sizeof(Elem) * dp, nullptr, nullptr);
+  if (kMasked) smem = layout_results(nullptr, smem, kp, e * m0, nullptr);
+  if (const int rc = allow_smem(beam_search_level0_kernel<R, kMasked>, smem)) return rc;
+  beam_search_level0_kernel<R, kMasked><<<b, kThreads, smem, stream>>>(
       static_cast<const Elem*>(q), static_cast<const Elem*>(vectors),
       static_cast<const int32_t*>(adj0), static_cast<const float*>(beam_d),
       static_cast<const int32_t*>(beam_i), static_cast<const uint8_t*>(beam_x),
       static_cast<const int32_t*>(cand), static_cast<const uint8_t*>(active),
-      static_cast<float*>(out_d), static_cast<int32_t*>(out_i),
-      static_cast<int32_t*>(iters), ef, m0, e, dp, metric, max_iters);
+      static_cast<const uint8_t*>(node_mask), static_cast<const float*>(res_d),
+      static_cast<const int32_t*>(res_i), static_cast<float*>(out_d),
+      static_cast<int32_t*>(out_i), static_cast<int32_t*>(iters), ef, m0, e, dp, metric,
+      max_iters, kp);
   return static_cast<int>(cudaGetLastError());
+}
+
+using LaunchLevel0 = decltype(&launch_level0<F32Rows, false>);
+
+template <class R>
+LaunchLevel0 pick_level0(bool masked) {
+  return masked ? launch_level0<R, true> : launch_level0<R, false>;
 }
 
 // Whether the loop kernel takes rows of form `rows` and `dp` elements with
@@ -640,23 +763,30 @@ int tpuvec_beam_update(const void* beam_d, const void* beam_i,
 
 // The whole level-0 loop for b queries, one block each, on rows of form
 // `rows` (kRowsF32 / kRowsInt8 / kRowsWords) with distance form `metric`.
-// Launches on `stream` and returns cudaGetLastError(), or kSmemTooLarge.
+// With node_mask null, out_d / out_i [b, ef] receive the beam and res_d,
+// res_i and kp are unused. With node_mask ([cap] bytes, 1 = the node may be
+// returned), res_d / res_i are the seeded result buffers [b, kp] and
+// out_d / out_i [b, kp] receive the results (the masked form). Launches on
+// `stream` and returns cudaGetLastError(), or kSmemTooLarge.
 int tpuvec_beam_search_level0(const void* q, const void* vectors, const void* adj0,
                               const void* beam_d, const void* beam_i, const void* beam_x,
-                              const void* cand, const void* active,
+                              const void* cand, const void* active, const void* node_mask,
+                              const void* res_d, const void* res_i,
                               void* out_d, void* out_i, void* iters,
                               int b, int ef, int m0, int e, int dp, int rows, int metric,
-                              int max_iters, void* stream) {
+                              int max_iters, int kp, void* stream) {
+  const bool masked = node_mask != nullptr;
   if (bad_beam_shape(b, ef, e * m0, e) || m0 < 1 || max_iters < 0 ||
-      !good_rows(rows, dp, metric)) {
+      !good_rows(rows, dp, metric) || (masked && (kp < 1 || !res_d || !res_i))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0) return 0;
-  auto launch = rows == kRowsF32    ? launch_level0<F32Rows>
-                : rows == kRowsInt8 ? launch_level0<Int8Rows>
-                                    : launch_level0<WordRows>;
-  return launch(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, out_d, out_i, iters,
-                b, ef, m0, e, dp, metric, max_iters, static_cast<cudaStream_t>(stream));
+  const LaunchLevel0 launch = rows == kRowsF32    ? pick_level0<F32Rows>(masked)
+                              : rows == kRowsInt8 ? pick_level0<Int8Rows>(masked)
+                                                  : pick_level0<WordRows>(masked);
+  return launch(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, node_mask, res_d,
+                res_i, out_d, out_i, iters, b, ef, m0, e, dp, metric, max_iters, kp,
+                static_cast<cudaStream_t>(stream));
 }
 
 const char* tpuvec_cuda_error_string(int code) {

@@ -29,13 +29,22 @@ def bruteforce_knn_internal(
     k: int,
     chunk: int = 16384,
     normalized: bool = False,
+    slot_codes: torch.Tensor | None = None,
+    q_codes: torch.Tensor | None = None,
 ):
     """Exact k-NN in *internal* distance space.
 
     q [B, D]; x [N, D] (padded rows allowed: mask them via `valid`);
     valid [N] bool. Returns (internal_dists [B, k] ascending, ids [B, k]
     i32); masked and missing slots come back as (+inf, -1).
+
+    ``slot_codes`` i32 [N] with ``q_codes`` i32 [B] filter per query in the
+    same scan (multi-tenant serving: each query its own partition): row n
+    is eligible for query b iff slot_codes[n] == q_codes[b]. Rows with no
+    code hold -1; a query code of -2 matches nothing.
     """
+    if (slot_codes is None) != (q_codes is None):
+        raise ValueError("bruteforce_knn_internal: slot_codes and q_codes go together")
     b = q.shape[0]
     n = x.shape[0]
     run_d = torch.full((b, k), _INF, dtype=torch.float32, device=q.device)
@@ -43,6 +52,9 @@ def bruteforce_knn_internal(
     for start in range(0, n, chunk):
         d = internal_pairwise(metric, q, x[start : start + chunk], normalized=normalized)
         d = torch.where(valid[start : start + chunk][None, :], d, _INF)
+        if slot_codes is not None:
+            same = slot_codes[start : start + chunk][None, :] == q_codes[:, None]
+            d = torch.where(same, d, _INF)
         cd, ci = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False, sorted=True)
         run_d, pos = torch.topk(
             torch.cat([run_d, cd], dim=1), k, dim=1, largest=False, sorted=True

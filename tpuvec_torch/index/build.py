@@ -13,7 +13,8 @@ Inserts land in mini-batches, each in four stages (``insert_batch``):
 Batch members do not see each other in the level-0 graph; the doubling
 batch schedule keeps each batch no larger than the graph it joins. Levels
 are a pure function of the node id (``utils/prng.py``), computed on the
-host. The stages update the graph's tensors in place.
+host. The stages update the graph's tensors in place, and so does
+``delete_ids``.
 
 Every write aimed at a padding row (id -1, an overflowing upper slot, a
 non-leader reverse row) is masked explicitly in ``_write_rows``, and
@@ -35,9 +36,10 @@ from tpuvec_torch.index.search import (
 )
 from tpuvec_torch.ops.distance import hamming_pairwise
 from tpuvec_torch.types import DistanceMetric
+from tpuvec_torch.utils import timing
 from tpuvec_torch.utils.prng import sample_levels_np
 
-__all__ = ["insert_batch", "build_graph", "plan_batch_sizes", "heuristic_select"]
+__all__ = ["insert_batch", "build_graph", "delete_ids", "plan_batch_sizes", "heuristic_select"]
 
 _INF = float("inf")
 _I32 = torch.int32
@@ -185,16 +187,26 @@ def _stage_upper(
     state: GraphState,
     new_ids: torch.Tensor,
     new_vecs: torch.Tensor,
+    *,
+    width: int | None = None,
 ) -> GraphState:
     """Stage 3: upper-level edges by exact selection over the compact
     upper pool, plus reverse edges (no protected prefix).
 
-    The batch is compacted to its level >= 1 members and their top level
-    is read to the host once: a level no member reaches runs nothing.
+    The batch is compacted to its level >= 1 members, in batch order, and
+    only the first ``k_up`` of them get upper edges, as in the JAX package
+    (``tpuvec/index/build.py:266-276``): k_up = width if width <= 256 else
+    max(256, width // 4), where ``width`` is the JAX package's padded batch
+    width (``build_graph``'s ``max_batch``; default the batch's length).
+    The rows past k_up keep their level and upper slot but get no upper
+    out-edges and cause no reverse edges. The members' top level is read to
+    the host once: a level no member reaches runs nothing.
     """
     c = config
+    width = new_ids.shape[0] if width is None else width
+    k_up = width if width <= 256 else max(256, width // 4)
     new_levels = _batch_levels(config, state, new_ids)
-    sub = torch.nonzero((new_ids >= 0) & (new_levels >= 1))[:, 0]
+    sub = torch.nonzero((new_ids >= 0) & (new_levels >= 1))[:k_up, 0]
     if sub.numel() == 0:
         return state
     new_ids, new_vecs, new_levels = new_ids[sub], new_vecs[sub], new_levels[sub]
@@ -338,20 +350,42 @@ def _stage_connect(
     return state
 
 
+def _sync_if_timed(state: GraphState) -> None:
+    """Wait for the card when timing is on, so a stage's timer holds its
+    device time; no cost when timing is off."""
+    if timing.enabled() and state.count.is_cuda:
+        torch.cuda.synchronize(state.count.device)
+
+
 def insert_batch(
     config: HnswConfig,
     state: GraphState,
     new_ids: torch.Tensor,     # [nb] i32, -1 = padding
     new_vecs: torch.Tensor,    # [nb, Dp] already prepared (prepare_vectors)
     new_levels: torch.Tensor,  # [nb] i32 (from sample_levels_np; ignored for pads)
+    *,
+    width: int | None = None,
 ) -> GraphState:
     """Insert a mini-batch of nodes, updating ``state`` in place (and
     returning it). The candidate search runs against the pre-batch graph:
-    new upper slots exist but have no in-edges yet."""
-    state = _stage_write(config, state, new_ids, new_vecs, new_levels)
-    cand_d, cand_i = _stage_candidates(config, state, new_vecs)
-    state = _stage_upper(config, state, new_ids, new_vecs)
-    return _stage_connect(config, state, new_ids, cand_d, cand_i)
+    new upper slots exist but have no in-edges yet. ``width`` is the JAX
+    package's padded batch width, which caps the upper stage (``_stage_upper``);
+    it defaults to the batch's length. Each stage runs under a
+    ``utils/timing.py`` timer (``insert.write``, ``.candidates``, ``.upper``,
+    ``.connect``)."""
+    with timing.timer("insert.write"):
+        state = _stage_write(config, state, new_ids, new_vecs, new_levels)
+        _sync_if_timed(state)
+    with timing.timer("insert.candidates"):
+        cand_d, cand_i = _stage_candidates(config, state, new_vecs)
+        _sync_if_timed(state)
+    with timing.timer("insert.upper"):
+        state = _stage_upper(config, state, new_ids, new_vecs, width=width)
+        _sync_if_timed(state)
+    with timing.timer("insert.connect"):
+        state = _stage_connect(config, state, new_ids, cand_d, cand_i)
+        _sync_if_timed(state)
+    return state
 
 
 def plan_batch_sizes(total: int, max_batch: int = 1024, start: int = 1) -> list[int]:
@@ -384,7 +418,8 @@ def build_graph(
     words may come as uint32 and are viewed as int32) on ``device``, in doubling mini-batches. ``start_size`` seeds the
     schedule with the current graph size when inserting into an existing
     ``state``. Batches are not padded to one shape: torch runs eagerly and
-    has nothing to recompile."""
+    has nothing to recompile. Each batch's upper stage is capped as for the
+    JAX package's padded width ``max_batch`` (``_stage_upper``)."""
     dev = resolve(device)
     x = as_store_tensor(vectors_prepared, device=dev).to(config.store_dtype)
     n = x.shape[0]
@@ -399,6 +434,55 @@ def build_graph(
     pos = 0
     for take in plan_batch_sizes(n, max_batch, start=start_size):
         sl = slice(pos, pos + take)
-        state = insert_batch(config, state, ids_t[sl], x[sl], levels_t[sl])
+        state = insert_batch(config, state, ids_t[sl], x[sl], levels_t[sl], width=max_batch)
         pos += take
+    return state
+
+
+def delete_ids(config: HnswConfig, state: GraphState, ids: torch.Tensor) -> GraphState:
+    """Delete nodes (ids i32 [n], -1 = padding), in place on the state's
+    device, as ``tpuvec/index/build.py:delete_ids`` does: each node loses
+    its level, upper slot and level-0 and upper rows (-1 / +inf); its upper
+    slot is freed in ``upper_nodes`` (``upper_count`` stays: slots are not
+    reused); every edge to it is scrubbed; a deleted entry point is
+    replaced by the first live node of the highest level (or -1 when none
+    is live). ``count`` drops by the ids that were live, counted per entry
+    of ``ids``: as in the JAX package, an id listed twice is subtracted
+    twice. Returns ``state``."""
+    c = config
+    if ids.numel() == 0:
+        return state
+    ok = ids >= 0
+    safe = ids.clamp_min(0)
+    was_live = ok & (state.levels[safe] >= 0)
+    slots = torch.where(ok, state.upper_slot[safe], -1)
+    entry_deleted = (ok & (ids == state.entry_point)).any()
+
+    _write_rows(state.levels, ids, torch.full_like(ids, -1), ok)
+    _write_rows(state.upper_slot, ids, torch.full_like(ids, -1), ok)
+    _write_rows(state.upper_nodes, slots, torch.full_like(slots, -1), slots >= 0)
+    state.adj0[ids[ok].long()] = -1
+    state.adj0_dist[ids[ok].long()] = _INF
+    state.upper_adj[slots[slots >= 0].long()] = -1
+    state.upper_dist[slots[slots >= 0].long()] = _INF
+
+    # scrub inbound edges: a sorted search per cell, no [cap, M0, n] broadcast
+    deleted = torch.sort(torch.where(ok, ids, torch.iinfo(torch.int32).max)).values
+    for adj, dist in ((state.adj0, state.adj0_dist), (state.upper_adj, state.upper_dist)):
+        pos = torch.searchsorted(deleted, adj).clamp_max(deleted.numel() - 1)
+        hit = (deleted[pos] == adj) & (adj >= 0)
+        adj.masked_fill_(hit, -1)
+        dist.masked_fill_(hit, _INF)
+
+    # argmax gives the first live node of the highest level (absent: -1)
+    any_live = (state.levels >= 0).any()
+    new_entry = torch.argmax(state.levels).to(_I32)
+    new_level = state.levels.max()
+    state.entry_point = torch.where(
+        entry_deleted, torch.where(any_live, new_entry, -1), state.entry_point
+    ).to(_I32)
+    state.entry_level = torch.where(
+        entry_deleted, torch.where(any_live, new_level, -1), state.entry_level
+    ).to(_I32)
+    state.count = state.count - was_live.sum(dtype=_I32)
     return state

@@ -1,9 +1,10 @@
-"""HNSW parameters: the port's own copy of ``tpuvec/index/params.py``."""
+"""HNSW parameters and presets: the port's own copy of
+``tpuvec/index/params.py``."""
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 from tpuvec_torch.types import InvalidParameter
 
@@ -31,6 +32,27 @@ class HnswParams:
     @property
     def level_factor(self) -> float:
         return 1.0 / math.log(self.m)
+
+    # -- presets -----------------------------------------------------------
+
+    @classmethod
+    def high_recall(cls) -> "HnswParams":
+        return cls(m=32, max_m0=64, ef_construction=400, ef_search=200)
+
+    @classmethod
+    def hot_tier(cls) -> "HnswParams":
+        return cls(m=32, max_m0=64, ef_construction=200, ef_search=100)
+
+    @classmethod
+    def warm_tier(cls) -> "HnswParams":
+        return cls(m=64, max_m0=128, ef_construction=600, ef_search=400)
+
+    @classmethod
+    def cold_tier(cls) -> "HnswParams":
+        return cls(m=96, max_m0=192, ef_construction=1000, ef_search=800)
+
+    def with_(self, **kw) -> "HnswParams":
+        return replace(self, **kw)
 
     def validate(self) -> None:
         if not (2 <= self.m <= 256):

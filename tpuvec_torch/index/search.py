@@ -17,6 +17,12 @@ so the descent and the loop compute the graph's internal distances on
 rows of one dtype: exact integers for int8 and packed words.
 
 ``n_expand`` (E) expands the E best unexpanded candidates per iteration.
+
+Filtered search (``filter_mask`` [cap] bool) restricts the *results*, not
+the traversal: filtered nodes still route, and a result buffer of
+KP = next_pow2(max(2 k, 4)) slots collects the mask-passing nodes of every
+expanded window (``ops/beam.py``), so it sees every window's candidates,
+not only the beam's survivors.
 """
 
 from __future__ import annotations
@@ -88,6 +94,8 @@ def beam_search_level0(
     ef: int,
     max_iters: int,
     n_expand: int = 1,
+    node_mask: torch.Tensor | None = None,
+    k_out: int | None = None,
 ):
     """Best-first beam search at level 0.
 
@@ -96,19 +104,33 @@ def beam_search_level0(
     (beam_d [B, EF] ascending, beam_i [B, EF], iters) in internal
     distance, with EF = next_pow2(ef); iters is the most iterations any
     query ran while active.
+
+    With ``node_mask`` [cap] bool (filtered search) returns
+    (res_d [B, KP], res_i [B, KP], iters) instead: the mask-passing nodes
+    met, deduplicated and ascending, KP = next_pow2(max(2 k_out, 4));
+    ``k_out`` is then required.
     """
-    beam = seed_beam(seed_ids, seed_dists, ef=ef, n_expand=n_expand)
+    beam = seed_beam(seed_ids, seed_dists, ef=ef, n_expand=n_expand,
+                     node_mask=node_mask, k_out=k_out)
     return beam_loop(
         q.contiguous(), state.vectors, state.adj0, *beam,
         metric=config.graph_metric, normalized=config.normalized, max_iters=max_iters,
+        node_mask=node_mask,
     )
 
 
-def seed_beam(seed_ids: torch.Tensor, seed_dists: torch.Tensor, *, ef: int, n_expand: int):
+def seed_beam(seed_ids: torch.Tensor, seed_dists: torch.Tensor, *, ef: int, n_expand: int,
+              node_mask: torch.Tensor | None = None, k_out: int | None = None):
     """The level-0 beam before its first iteration: the seed in slot 0 and
     +inf padding (marked expanded), with the first frontier selected and
     marked. Returns (beam_d, beam_i, beam_x [B, EF], cand [B, E], active [B]),
-    the state ``beam_loop`` starts from."""
+    the state ``beam_loop`` starts from. With ``node_mask`` it also returns
+    the seeded result buffer (res_d, res_i [B, KP],
+    KP = next_pow2(max(2 k_out, 4)): twice k, since a node evicted from
+    the beam can be collected twice): the seed in slot 0 if it passes the
+    mask, else (+inf, -1). ``k_out`` is required with ``node_mask``."""
+    if node_mask is not None and k_out is None:
+        raise ValueError("seed_beam: a node_mask needs k_out, the results wanted")
     b = seed_ids.shape[0]
     efp = _next_pow2(ef)
     dev = seed_ids.device
@@ -120,7 +142,15 @@ def seed_beam(seed_ids: torch.Tensor, seed_dists: torch.Tensor, *, ef: int, n_ex
     beam_x[:, 0] = seed_ids < 0
     sel, cand, active = frontier(beam_d, beam_i, beam_x, n_expand)
     beam_x |= sel
-    return beam_d, beam_i, beam_x, cand, active
+    if node_mask is None:
+        return beam_d, beam_i, beam_x, cand, active
+    kp = _next_pow2(max(2 * k_out, 4))
+    seed_ok = (seed_ids >= 0) & node_mask[seed_ids.clamp_min(0)]
+    res_d = torch.full((b, kp), _INF, dtype=torch.float32, device=dev)
+    res_i = torch.full((b, kp), -1, dtype=torch.int32, device=dev)
+    res_d[:, 0] = torch.where(seed_ok, seed_dists, _INF)
+    res_i[:, 0] = torch.where(seed_ok, seed_ids, -1)
+    return beam_d, beam_i, beam_x, cand, active, res_d, res_i
 
 
 def default_max_iters(ef: int, n_expand: int) -> int:
@@ -136,12 +166,15 @@ def search_graph(
     ef: int | None = None,
     max_iters: int | None = None,
     n_expand: int = 1,
+    filter_mask: torch.Tensor | None = None,
 ):
     """Batched k-NN over the graph in *internal* distance space.
 
     q [B, Dp] must already be prepared (prepare_queries: the graph's store
     dtype) and lie on the graph's device. Returns (dists [B, k], ids [B, k]) ascending; empty
     index -> (inf, -1). ef defaults to max(ef_search, k).
+    ``filter_mask`` [cap] bool restricts the results (not the traversal)
+    to mask-passing nodes; slots past the ones found are (inf, -1).
     """
     ef = max(ef or config.ef_search, k)
     if max_iters is None:
@@ -149,7 +182,7 @@ def search_graph(
     seed_ids, seed_d = descend_to_level1(config, state, q)
     beam_d, beam_i, _ = beam_search_level0(
         config, state, q, seed_ids, seed_d,
-        ef=ef, max_iters=max_iters, n_expand=n_expand,
+        ef=ef, max_iters=max_iters, n_expand=n_expand, node_mask=filter_mask, k_out=k,
     )
     empty = state.entry_point < 0
     out_d = torch.where(empty, _INF, beam_d[:, :k])

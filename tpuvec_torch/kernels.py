@@ -5,7 +5,9 @@ shared library with a plain C interface and loaded with ctypes. Builds
 happen at first use, never at import, into ``build/kernels/`` beside the
 package (listed in ``.gitignore``); a library's file name carries a hash
 of its source, so an edited source is rebuilt. ``build_all`` starts one
-``nvcc`` per source, all at once.
+``nvcc`` per source, all at once. Each build keeps ptxas's report (the
+registers, spills and shared memory of every kernel) beside its library,
+for ``ptxas_report``.
 """
 
 from __future__ import annotations
@@ -18,13 +20,13 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "build_all", "error_string", "SOURCES"]
+__all__ = ["load", "build_all", "error_string", "ptxas_report", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "build" / "kernels"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -32,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "beam_update": {
         "tpuvec_beam_update": ([_P] * 10 + [_I] * 4 + [_P], _I),
-        "tpuvec_beam_search_level0": ([_P] * 11 + [_I] * 8 + [_P], _I),
+        "tpuvec_beam_search_level0": ([_P] * 14 + [_I] * 9 + [_P], _I),
         "tpuvec_cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -89,6 +91,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
                 errors.append(f"nvcc failed for {name}.cu:\n{out}")
             else:
                 os.replace(tmp, todo[name])
+                todo[name].with_suffix(".ptxas.txt").write_text(out)
         if errors:
             raise RuntimeError("\n".join(errors))
         for name, path in todo.items():
@@ -102,6 +105,12 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = build_all()[name]
     return lib
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's report on kernel source ``name`` from its build (nvcc
+    ``-Xptxas -v``): per kernel, the registers, spills and shared memory."""
+    return _target(name).with_suffix(".ptxas.txt").read_text()
 
 
 def error_string(lib: ctypes.CDLL, code: int) -> str:

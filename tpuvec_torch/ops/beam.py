@@ -36,6 +36,21 @@ The kernel has a form for each kind of row the index stores: f32, int8
 (exact int32 sums) and packed bit words (int32, Hamming). The form follows
 the rows' dtype (``_loop_form``), and the launches of each form are
 counted in ``beam_loop.form_launches``.
+
+Filtered search (``node_mask`` [cap] bool, the JAX package's ``body_m``,
+``tpuvec/index/search.py:295-316`` and ``:363-383``): the beam and its
+frontier run exactly as above (filtered nodes still route), and a
+separate result buffer res_d/res_i [B, KP] (KP = next_pow2(max(2 k, 4)),
+seeded by ``index/search.py:seed_beam``, sorted ascending) collects the
+mask-passing fresh entries of every expanded window. Each iteration,
+before the beam merge, the window with every entry that is not fresh or
+fails the mask set to (+inf, -1) is merged into the buffer by the same
+stable merge (buffer before window), keeping KP. The buffer is not
+deduplicated inside the loop: a node evicted from the beam and met again
+is collected twice. After the loop the first occurrence of each id is
+kept (the others become (+inf, -1)) and the buffer is sorted ascending,
+stably. Each row form has a masked form of the kernel (``f32+mask``,
+``int8+mask``, ``words+mask`` in ``form_launches``).
 """
 
 from __future__ import annotations
@@ -77,24 +92,34 @@ def frontier(sd: torch.Tensor, si: torch.Tensor, sx: torch.Tensor, n_expand: int
     return sel, cand[:, :n_expand].contiguous(), active
 
 
+def _fresh(beam_i, nbrs, n_expand):
+    """fresh[b, w]: nbrs[b, w] is an id, not in the beam and (E > 1) not
+    equal to an earlier window entry."""
+    dup = (nbrs[:, :, None] == beam_i[:, None, :]).any(-1)
+    if n_expand > 1:
+        pos = torch.arange(nbrs.shape[1], device=nbrs.device)
+        earlier = (pos[:, None] > pos[None, :])[None]
+        dup |= ((nbrs[:, :, None] == nbrs[:, None, :]) & earlier).any(-1)
+    return (nbrs >= 0) & ~dup
+
+
+def _merge_smallest(d, i, new_d, new_i, keep):
+    """The ``keep`` smallest of (d, i) ++ (new_d, new_i) by a stable sort:
+    ties keep the old entries first, the new ones in their order."""
+    sd, order = torch.sort(torch.cat([d, new_d], dim=1), dim=1, stable=True)
+    order = order[:, :keep]
+    return sd[:, :keep].contiguous(), torch.gather(torch.cat([i, new_i], dim=1), 1, order), order
+
+
 def beam_update_plain(beam_d, beam_i, beam_x, nbrs, nd, *, n_expand=1):
     """Plain torch form of ``beam_update``: the tests' and the card
     check's yardstick for the kernel."""
     efp = beam_d.shape[1]
-    w = nbrs.shape[1]
-    dup = (nbrs[:, :, None] == beam_i[:, None, :]).any(-1)
-    if n_expand > 1:
-        pos = torch.arange(w, device=nbrs.device)
-        earlier = (pos[:, None] > pos[None, :])[None]
-        dup |= ((nbrs[:, :, None] == nbrs[:, None, :]) & earlier).any(-1)
-    fresh = (nbrs >= 0) & ~dup
-    d = torch.cat([beam_d, torch.where(fresh, nd, _INF)], dim=1)
-    i = torch.cat([beam_i, torch.where(fresh, nbrs, -1)], dim=1)
+    fresh = _fresh(beam_i, nbrs, n_expand)
+    sd, si, order = _merge_smallest(
+        beam_d, beam_i, torch.where(fresh, nd, _INF), torch.where(fresh, nbrs, -1), efp
+    )
     x = torch.cat([beam_x, torch.zeros_like(fresh)], dim=1)
-    sd, order = torch.sort(d, dim=1, stable=True)
-    order = order[:, :efp]
-    sd = sd[:, :efp].contiguous()
-    si = torch.gather(i, 1, order)
     sx = torch.gather(x, 1, order) | ~torch.isfinite(sd)
     sel, cand, active = frontier(sd, si, sx, n_expand)
     return sd, si, sx | sel, cand, active
@@ -193,12 +218,16 @@ def node_dist(metric, normalized, vectors, q, ids):
     return torch.where(ids >= 0, d, _INF)
 
 
-def beam_loop_plain(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
-                    metric, normalized, max_iters):
+def beam_loop_plain(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active,
+                    res_d=None, res_i=None, *, metric, normalized, max_iters,
+                    node_mask=None):
     """Plain torch form of ``beam_loop``: the whole batch in lock step, one
-    ``beam_update_plain`` per iteration."""
+    ``beam_update_plain`` per iteration; with ``node_mask``, the result
+    buffer res_d/res_i collects the mask-passing fresh entries first (the
+    module docstring)."""
     b, e = cand.shape
     w = e * adj0.shape[1]
+    kp = 0 if node_mask is None else res_d.shape[1]
     count = torch.zeros((b,), dtype=torch.int32, device=q.device)
     for it in range(max_iters):
         if it % _ACTIVE_CHECK_EVERY == 0 and not bool(active.any()):
@@ -208,10 +237,24 @@ def beam_loop_plain(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
         nbrs = adj0[cand.clamp_min(0)]  # [B, E, M0]
         nbrs = torch.where(ok[:, :, None], nbrs, -1).reshape(b, w)
         nd = node_dist(metric, normalized, vectors, q, nbrs)
+        if node_mask is not None:
+            allow = _fresh(beam_i, nbrs, e) & node_mask[nbrs.clamp_min(0)]
+            res_d, res_i, _ = _merge_smallest(
+                res_d, res_i, torch.where(allow, nd, _INF), torch.where(allow, nbrs, -1), kp
+            )
         beam_d, beam_i, beam_x, cand, active = beam_update_plain(
             beam_d, beam_i, beam_x, nbrs, nd, n_expand=e
         )
-    return beam_d, beam_i, int(count.max()) if b else 0
+    iters = int(count.max()) if b else 0
+    if node_mask is None:
+        return beam_d, beam_i, iters
+    # keep the first (sorted) occurrence of each id, then sort stably
+    pos = torch.arange(kp, device=q.device)
+    earlier = (pos[:, None] > pos[None, :])[None]
+    dup = ((res_i[:, :, None] == res_i[:, None, :]) & earlier).any(-1) & (res_i >= 0)
+    res_d, order = torch.sort(torch.where(dup, _INF, res_d), dim=1, stable=True)
+    res_i = torch.gather(torch.where(dup, -1, res_i), 1, order)
+    return res_d, res_i, iters
 
 
 # The kernel's row forms by row dtype: (name, elements per 16-byte load,
@@ -243,8 +286,8 @@ def _loop_form(metric: DistanceMetric, normalized: bool, row_dtype: torch.dtype)
     raise ValueError(f"unsupported metric {metric}")
 
 
-def _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, metric,
-                normalized, max_iters):
+def _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, res_d, res_i,
+                metric, normalized, max_iters, node_mask):
     if q.dtype != vectors.dtype:
         raise ValueError(f"beam_loop: queries are {q.dtype} but rows are {vectors.dtype}")
     row, form = _loop_form(metric, normalized, vectors.dtype)
@@ -252,7 +295,7 @@ def _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, metric,
     dp = _dims(q, 2)[1]
     cap, m0 = _dims(adj0, 2)
     e = _dims(cand, 2)[1]
-    _expect("beam_loop", beam_d.device, [
+    want = [
         (q, vectors.dtype, (b, dp)),
         (vectors, vectors.dtype, (cap, dp)),
         (adj0, torch.int32, (cap, m0)),
@@ -261,18 +304,31 @@ def _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, metric,
         (beam_x, torch.bool, (b, efp)),
         (cand, torch.int32, (b, e)),
         (active, torch.bool, (b,)),
-    ])
+    ]
+    if (node_mask is None) != (res_d is None) or (res_d is None) != (res_i is None):
+        raise ValueError("beam_loop: node_mask and the result buffer res_d, res_i go together")
+    if node_mask is not None:
+        kp = _dims(res_d, 2)[1]
+        if kp < 1:
+            raise ValueError("beam_loop: the result buffer has no slot")
+        want += [
+            (node_mask, torch.bool, (cap,)),
+            (res_d, torch.float32, (b, kp)),
+            (res_i, torch.int32, (b, kp)),
+        ]
+    _expect("beam_loop", beam_d.device, want)
     _check_beam("beam_loop", efp, e * m0, e)
     per_load = _ROWS[vectors.dtype][1]
     if dp < per_load or dp % per_load:  # the kernel reads rows in 16-byte loads
         raise ValueError(f"beam_loop: {row} row width {dp} is not a multiple of {per_load}")
     if max_iters < 0:
         raise ValueError(f"beam_loop: max_iters = {max_iters} < 0")
-    return row, form
+    return row if node_mask is None else row + "+mask", form
 
 
-def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
-              metric: DistanceMetric, normalized: bool, max_iters: int):
+def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, res_d=None,
+              res_i=None, *, metric: DistanceMetric, normalized: bool, max_iters: int,
+              node_mask: torch.Tensor | None = None):
     """The level-0 loop from a seeded beam and its first frontier.
 
     q [B, Dp] prepared queries and vectors [cap, Dp] the graph's rows, both
@@ -280,16 +336,23 @@ def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
     graph's; beam_d/beam_i/beam_x [B, EF] the beam with the frontier
     already marked expanded; cand i32[B, E] and active bool[B] that frontier.
     Returns (beam_d [B, EF], beam_i [B, EF], iters): iters is the most
-    iterations any query ran while active. CPU tensors run the plain
-    version; CUDA tensors launch the kernel (one block per query), or raise.
+    iterations any query ran while active.
+
+    Filtered (``node_mask`` bool [cap], with the seeded result buffer
+    res_d f32 / res_i i32 [B, KP] from ``index/search.py:seed_beam``):
+    returns (res_d [B, KP], res_i [B, KP], iters), the mask-passing nodes
+    met, deduplicated and ascending (the module docstring).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (one
+    block per query), or raise.
     """
-    row, form = _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active,
-                            metric, normalized, max_iters)
+    form_name, form = _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active,
+                                  res_d, res_i, metric, normalized, max_iters, node_mask)
     dev = beam_d.device
     if dev.type == "cpu":
         return beam_loop_plain(
-            q, vectors, adj0, beam_d, beam_i, beam_x, cand, active,
-            metric=metric, normalized=normalized, max_iters=max_iters,
+            q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, res_d, res_i,
+            metric=metric, normalized=normalized, max_iters=max_iters, node_mask=node_mask,
         )
     if dev.type != "cuda":
         raise ValueError(f"beam_loop: unsupported device {dev}")
@@ -302,23 +365,31 @@ def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, *,
     m0 = adj0.shape[1]
     e = cand.shape[1]
     dp = q.shape[1]
-    out_d = torch.empty_like(beam_d)
-    out_i = torch.empty_like(beam_i)
+    if node_mask is None:
+        kp, mask_p, res_d_p, res_i_p = 0, None, None, None
+        out_d, out_i = torch.empty_like(beam_d), torch.empty_like(beam_i)
+    else:
+        kp, mask_p, res_d_p, res_i_p = res_d.shape[1], node_mask.data_ptr(), res_d.data_ptr(), res_i.data_ptr()
+        out_d, out_i = torch.empty_like(res_d), torch.empty_like(res_i)
     iters = torch.empty((b,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tpuvec_beam_search_level0(
             q.data_ptr(), vectors.data_ptr(), adj0.data_ptr(),
             beam_d.data_ptr(), beam_i.data_ptr(), beam_x.data_ptr(),
-            cand.data_ptr(), active.data_ptr(),
+            cand.data_ptr(), active.data_ptr(), mask_p, res_d_p, res_i_p,
             out_d.data_ptr(), out_i.data_ptr(), iters.data_ptr(),
-            b, efp, m0, e, dp, _ROWS[vectors.dtype][2], form, max_iters, stream,
+            b, efp, m0, e, dp, _ROWS[vectors.dtype][2], form, max_iters, kp, stream,
         )
-    _raise_for(f"beam_loop ({row} rows, EF={efp}, W={e * m0}, Dp={dp})", kernels, lib, rc)
+    _raise_for(f"beam_loop ({form_name} rows, EF={efp}, W={e * m0}, Dp={dp}, KP={kp})",
+               kernels, lib, rc)
     beam_loop.launches += 1
-    beam_loop.form_launches[row] += 1
+    beam_loop.form_launches[form_name] += 1
     return out_d, out_i, int(iters.max()) if b else 0
 
 
-beam_loop.launches = 0  # all row forms
-beam_loop.form_launches = {name: 0 for name, _, _ in _ROWS.values()}  # per row form
+beam_loop.launches = 0  # all forms
+# per form: each row form, and its masked form
+beam_loop.form_launches = {
+    name + masked: 0 for name, _, _ in _ROWS.values() for masked in ("", "+mask")
+}
