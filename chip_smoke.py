@@ -80,18 +80,56 @@ Phases, one line each; any failure exits non-zero:
    squared L2 and Hamming exactly equal (result ids and distances,
    iterations), f32 held to phase 3b's tolerances; each form's device
    time per launch beside its bound (the distinct rows, as phase 3b counts
-   them, plus the mask bytes they read) and the plain loop's time.
+   them, plus the mask bytes they read) and the plain loop's time;
+8. the table on the card (tpuvec_torch/store/table.py), each part driven
+   with the launch counts set to 0 just before it and read just after:
+   8a. BASELINE config 5 at its source's full size whatever --n says
+   (scripts/bench_suite.py:config_5: 262,144 x 384 cosine, 1024 tenants,
+   default HnswParams(), initial_cap=n): insert_many of every row (vec/s,
+   the flush split by the insert stage timers); 64 single-tenant
+   knn(partition=) calls (QPS, purity 1.0, each min(k, tenant rows) long);
+   knn_many with per-query partitions, B=64 x 4 (QPS, equal to the
+   single-tenant calls); 256 unfiltered knn_many queries through HNSW
+   against knn_many(exact=True) (recall@10 >= 0.90, QPS); one knn_many
+   under a 50% predicate (the f32+mask form; every rowid must pass);
+   delete_many of every 10th rowid (integrity_check() == [], no deleted
+   rowid returned); update_many of 256 rows (row() returns the new
+   vectors); rebuild("e") and recall@10 >= 0.90 again. The f32 form must
+   launch in the flush and in the reads, f32+mask in the predicate query.
+   Then, on the table's graph, the loop kernel against beam_loop_plain at
+   the shapes config 5 gives it (search EF=256, W=64; construction EF=512,
+   E=2, W=128; the predicate's masked search under the table's 50% mask,
+   KP=32, EF=256, W=64) to phase 3b's tolerances, with device time and
+   bound;
+   8b. config 4 through the table: phase 6's data and params, 1024-d f32
+   with BINARY quantization and a metadata column bucket = rowid % 10;
+   the column must hold its f32 rerank shadow on the card; knn_many
+   unfiltered and under filters={"bucket": 5}, each through the device
+   expansion rerank, recall@10 >= 0.90 against the exact f32 scan, every
+   rowid in its bucket; the words form must launch in the flush and the
+   reads, words+mask in the filtered read. Each read's split into descent,
+   level-0 loop, exact scan, rerank and host is logged. Then, on the
+   table's graph, the words form against beam_loop_plain at the flush's
+   construction shape (EF=256, E=2, W=64) and the reads' search shape
+   (k=100: EF=128, W=32), and words+mask under the table's bucket-5 mask
+   at the filtered read's shape (KP=256, EF=128), each exactly equal.
+   Each part records the shape (form, EF, W, E, KP, Dp) of every loop
+   kernel call its path makes, and fails if one of them is not among
+   the shapes it then holds;
 
 Device times per launch are torch.profiler's; where its trace kept no
 launch of a kernel, they are CUDA events around the launches, and the
 kernels line says so ("ms_source": "cuda_events" in place of "profiler").
-The last two lines are a JSON line with every kernel's numbers and the
-JSON line {"ok": true, "device": {...}}.
+The last two lines are a JSON line with every kernel's numbers (its
+launches on the main paths in all, and by phase in "launches_by_path")
+and the JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -111,6 +149,9 @@ N, D, NQ, REPS, K = 100_000, 768, 256, 5, 10
 # BASELINE.md configs 3 and 4 (1024 dims; the sources run 1M and 10M rows)
 QD = 1024
 GEN_CHUNK = 250_000  # scripts/probe_10m_binary.py's rows per seeded chunk
+# BASELINE.md config 5 as scripts/bench_suite.py:config_5 runs it, whatever
+# --n says: rows, dims, tenants; the per-query batch and its reps
+C5_N, C5_D, C5_TENANTS, C5_B, C5_REPS = 262_144, 384, 1024, 64, 4
 # the loop kernel's name in a profiler trace, and its C entry point
 _LOOP_KERNEL = ("beam_search_level0_kernel", "tpuvec_beam_search_level0")
 
@@ -236,6 +277,21 @@ def _device_ms(fn, reps: int, kernel: str, entry: str) -> tuple[float, str]:
     return ms, "profiler"
 
 
+def _reset_launches():
+    """Every kernel wrapper's launch count to 0."""
+    from tpuvec_torch.ops.beam import beam_loop, beam_update
+
+    beam_update.launches = beam_loop.launches = 0
+    beam_loop.form_launches = dict.fromkeys(beam_loop.form_launches, 0)
+
+
+def _launches():
+    """(the loop kernel's launches by form, beam_update's launches)."""
+    from tpuvec_torch.ops.beam import beam_loop, beam_update
+
+    return dict(beam_loop.form_launches), beam_update.launches
+
+
 def _beam_bound(args, outs, e):
     """(bound_ms, bound_by) of one beam update: each input read once, each
     output written once, against the HBM rate; the compares a merge
@@ -314,9 +370,7 @@ def run_main_path(torch, device, n):
     _log(f"main: data {n}x{d} + {nq * (reps + 1)} queries made and prepared in {time.time() - t0:.1f}s")
 
     wrappers = {"beam_update": beam_update, "beam_search_level0": beam_loop}
-    for fn in wrappers.values():
-        fn.launches = 0
-    beam_loop.form_launches = dict.fromkeys(beam_loop.form_launches, 0)
+    _reset_launches()
     t0 = time.time()
     state = build_graph(cfg, xp, max_batch=1024, device=device)
     torch.cuda.synchronize()
@@ -501,8 +555,7 @@ def check_loop_kernel(torch, device, run):
     from tpuvec_torch.index.bruteforce import bruteforce_knn
     from tpuvec_torch.index.build import _build_iter_budget
     from tpuvec_torch.index.graph import prepare_vectors
-    from tpuvec_torch.index.search import default_max_iters, descend_to_level1, seed_beam
-    from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain
+    from tpuvec_torch.index.search import default_max_iters
 
     cfg, state, n, data = run["cfg"], run["state"], run["n"], run["data"]
     qc = prepare_vectors(cfg, data[n + NQ : n + NQ + 1024], device=device)
@@ -513,8 +566,20 @@ def check_loop_kernel(torch, device, run):
         (run["qp"], run["gt"], 64, 1, default_max_iters(64, 1)),
         (qc, gt_c.cpu().numpy(), efc, 2, _build_iter_budget(cfg.cap, efc, 2)),
     ]
-    kw = dict(metric=cfg.graph_metric, normalized=cfg.normalized)
     _check_loop_smem(torch, device)
+    return _hold_loop(torch, cfg, state, cases)
+
+
+def _hold_loop(torch, cfg, state, cases):
+    """beam_loop against beam_loop_plain on one f32 graph, for each case
+    (queries, their exact top-10 ids, ef, E, max_iters): after one
+    iteration within 1e-5 (ids equal where slots are apart); over the full
+    loop >= 99% of top-10 ids equal and recall@10 within 0.002. Returns
+    each shape's numbers: device time, bound, the plain loop's time."""
+    from tpuvec_torch.index.search import descend_to_level1, seed_beam
+    from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain
+
+    kw = dict(metric=cfg.graph_metric, normalized=cfg.normalized)
     shapes = []
     for q, gt, ef, e, max_iters in cases:
         args = (q, state.vectors, state.adj0, *seed_beam(*descend_to_level1(cfg, state, q), ef=ef, n_expand=e))
@@ -587,9 +652,6 @@ def trace_main_path(torch, device, run):
     build again with a synchronised timer around each insert stage and
     around the candidates stage's descent and level-0 loop; search batches
     split the same way; one search batch at the best ef under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from tpuvec_torch.index import build, search
     from tpuvec_torch.index.search import search_graph
 
@@ -624,10 +686,20 @@ def trace_main_path(torch, device, run):
          f"{spent['descend_to_level1'] / reps * 1e3:.2f} ms + level-0 loop "
          f"{spent['beam_search_level0'] / reps * 1e3:.2f} ms (mean of {reps})")
 
+    _log_busy(torch, f"search batch at ef={ef}", lambda: search_graph(cfg, state, q, k=K, ef=ef))
+
+
+def _log_busy(torch, label, fn):
+    """One call of ``fn`` under torch.profiler: its wall time, the time the
+    device was busy (the union of its kernels' spans), the device ops and
+    the four costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        search_graph(cfg, state, q, k=K, ef=ef)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     spans = sorted(
@@ -635,7 +707,7 @@ def trace_main_path(torch, device, run):
         for ev in prof.events() if ev.device_type == DeviceType.CUDA
     )
     if not spans:
-        _log("trace: search: the profiler recorded no device time (not measured)")
+        _log(f"trace: {label}: the profiler recorded no device time (not measured)")
         return
     busy, end, by_name = 0.0, -math.inf, {}
     for a, b, name in spans:
@@ -644,7 +716,7 @@ def trace_main_path(torch, device, run):
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     _log(
-        f"trace: search batch at ef={ef}: {wall_us / 1e3:.2f} ms traced, device busy "
+        f"trace: {label}: {wall_us / 1e3:.2f} ms traced, device busy "
         f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}), {len(spans)} device ops; top: "
         + "; ".join(f"{name[:48]} {us / 1e3:.2f} ms" for name, us in top)
     )
@@ -767,8 +839,7 @@ def run_quantized(torch, device, n):
              f"{cfg.padded_dim}, shadow {shadow.dtype} and exact f32 oracle ready in "
              f"{time.time() - t0:.1f}s")
 
-        beam_update.launches = beam_loop.launches = 0
-        beam_loop.form_launches = dict.fromkeys(beam_loop.form_launches, 0)
+        _reset_launches()
         t0 = time.time()
         state = build_graph(cfg, xp, max_batch=1024, device=device)
         torch.cuda.synchronize()
@@ -843,8 +914,7 @@ def check_quantized_loops(torch, device, qruns):
     Integer forms must be exactly equal; raw cosine within 1e-6."""
     from tpuvec_torch.index.build import _build_iter_budget
     from tpuvec_torch.index.graph import prepare_vectors
-    from tpuvec_torch.index.search import default_max_iters, descend_to_level1, seed_beam
-    from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain, node_dist
+    from tpuvec_torch.index.search import default_max_iters
     from tpuvec_torch.types import DistanceMetric
 
     shapes = {}
@@ -861,46 +931,59 @@ def check_quantized_loops(torch, device, qruns):
                        ("cosine", DistanceMetric.COSINE, False, 1e-6)]
         else:
             metrics = [("Hamming", cfg.graph_metric, False, 0.0)]
-        shapes[form] = []
-        for mlabel, metric, normalized, tol in metrics:
-            kw = dict(metric=metric, normalized=normalized)
-            for q, ef, e, max_iters in cases:
-                seed_i, _ = descend_to_level1(cfg, state, q)
-                seed_d = node_dist(metric, normalized, state.vectors, q, seed_i[:, None])[:, 0]
-                args = (q, state.vectors, state.adj0, *seed_beam(seed_i, seed_d, ef=ef, n_expand=e))
-                b, efp, w, dp = q.shape[0], args[3].shape[1], e * cfg.max_m0, q.shape[1]
-                label = f"{form} {mlabel} B={b} EF={efp} W={w} E={e} Dp={dp}"
-                kd, ki, k_it = beam_loop(*args, **kw, max_iters=max_iters)
-                fresh, adj, (pd, pi, p_it) = _loop_visits(torch, args, dict(kw, max_iters=max_iters))
-                if tol == 0.0:
-                    if not (torch.equal(kd, pd) and torch.equal(ki, pi) and k_it == p_it):
-                        raise AssertionError(
-                            f"beam_loop {label}: not exactly equal to plain: ids differ in "
-                            f"{int((ki != pi).sum())} slots, iterations {k_it} vs {p_it}"
-                        )
-                    err = 0.0
-                else:
-                    err = _check_one_iteration(torch, label, kd, ki, pd, pi, tol=tol,
-                                               when="over the full loop")
-                    if k_it != p_it:
-                        raise AssertionError(f"beam_loop {label}: iterations {k_it} vs plain {p_it}")
-                ms, ms_source = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters),
-                                           10, *_LOOP_KERNEL)
-                plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
-                iters_t = torch.empty((b,), dtype=torch.int32)
-                bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj, (kd, ki, iters_t))
-                shapes[form].append(dict(
-                    metric=mlabel, B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_it,
-                    ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by,
-                    distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err,
-                ))
-                same = "exactly equal to plain" if tol == 0.0 else f"within {tol:g} of plain (max err {err:.2e})"
-                _log(
-                    f"kernels: beam_loop {label}: {same}, {k_it} iterations; device {ms:.4f} ms "
-                    f"per launch (bound {bound_ms:.5f} ms by {bound_by}: {distinct / 1e6:.2f} MB "
-                    f"distinct, {per_visit / 1e6:.2f} MB per visit); plain loop {plain_ms:.2f} ms"
+        shapes[form] = [shape for metric in metrics
+                        for shape in _hold_quantized(torch, form, cfg, state, metric, cases)]
+    return shapes
+
+
+def _hold_quantized(torch, form, cfg, state, metric, cases):
+    """beam_loop against beam_loop_plain on one int8 or word graph under one
+    (label, metric, normalized, tolerance), for each case (queries, ef, E,
+    max_iters): at tolerance 0 exactly equal in ids, distances and
+    iterations, else within it. Returns each shape's numbers."""
+    from tpuvec_torch.index.search import descend_to_level1, seed_beam
+    from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain, node_dist
+
+    mlabel, metric, normalized, tol = metric
+    kw = dict(metric=metric, normalized=normalized)
+    shapes = []
+    for q, ef, e, max_iters in cases:
+        seed_i, _ = descend_to_level1(cfg, state, q)
+        seed_d = node_dist(metric, normalized, state.vectors, q, seed_i[:, None])[:, 0]
+        args = (q, state.vectors, state.adj0, *seed_beam(seed_i, seed_d, ef=ef, n_expand=e))
+        b, efp, w, dp = q.shape[0], args[3].shape[1], e * cfg.max_m0, q.shape[1]
+        label = f"{form} {mlabel} B={b} EF={efp} W={w} E={e} Dp={dp}"
+        kd, ki, k_it = beam_loop(*args, **kw, max_iters=max_iters)
+        fresh, adj, (pd, pi, p_it) = _loop_visits(torch, args, dict(kw, max_iters=max_iters))
+        if tol == 0.0:
+            if not (torch.equal(kd, pd) and torch.equal(ki, pi) and k_it == p_it):
+                raise AssertionError(
+                    f"beam_loop {label}: not exactly equal to plain: ids differ in "
+                    f"{int((ki != pi).sum())} slots, iterations {k_it} vs {p_it}"
                 )
+            err = 0.0
+        else:
+            err = _check_one_iteration(torch, label, kd, ki, pd, pi, tol=tol,
+                                       when="over the full loop")
+            if k_it != p_it:
+                raise AssertionError(f"beam_loop {label}: iterations {k_it} vs plain {p_it}")
+        ms, ms_source = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters),
+                                   10, *_LOOP_KERNEL)
+        plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
+        iters_t = torch.empty((b,), dtype=torch.int32)
+        bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj, (kd, ki, iters_t))
+        shapes.append(dict(
+            metric=mlabel, B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_it,
+            ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by,
+            distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err,
+        ))
+        same = "exactly equal to plain" if tol == 0.0 else f"within {tol:g} of plain (max err {err:.2e})"
+        _log(
+            f"kernels: beam_loop {label}: {same}, {k_it} iterations; device {ms:.4f} ms "
+            f"per launch (bound {bound_ms:.5f} ms by {bound_by}: {distinct / 1e6:.2f} MB "
+            f"distinct, {per_visit / 1e6:.2f} MB per visit); plain loop {plain_ms:.2f} ms"
+        )
     return shapes
 
 
@@ -962,8 +1045,7 @@ def run_filtered(torch, device, run, qruns):
                                 normalized=True)[1].cpu().numpy()
            for name, m in masks.items()}
 
-    beam_update.launches = beam_loop.launches = 0
-    beam_loop.form_launches = dict.fromkeys(beam_loop.form_launches, 0)
+    _reset_launches()
     points = []
     for name, mask in masks.items():
         for ef in (64, 256):
@@ -1091,8 +1173,7 @@ def check_masked_loops(torch, device, run, qruns, filt):
     k=48 (KP=128), ef=64, max_iters=64."""
     from tpuvec_torch.index.bruteforce import bruteforce_knn
     from tpuvec_torch.index.graph import prepare_vectors
-    from tpuvec_torch.index.search import default_max_iters, descend_to_level1, seed_beam
-    from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain
+    from tpuvec_torch.index.search import default_max_iters
 
     # form -> (config, state, queries, [(ef, k_out, max_iters), ...])
     graphs = {"f32": (run["cfg"], run["state"], run["qp"],
@@ -1103,58 +1184,485 @@ def check_masked_loops(torch, device, run, qruns, filt):
                         [(64, 48, 64)])
     shapes = {}
     for form, (cfg, state, q, cases) in graphs.items():
-        mask = filt["masks"][form]
-        kw = dict(metric=cfg.graph_metric, normalized=cfg.normalized, node_mask=mask)
-        seeds = descend_to_level1(cfg, state, q)
+        mask, gt = filt["masks"][form], None
         if form == "f32":
             gt = bruteforce_knn(q, run["xp"], mask[: run["n"]], metric=cfg.graph_metric, k=K,
                                 normalized=True)[1].cpu().numpy()
-        shapes[form] = []
-        for ef, k_out, max_iters in cases:
-            e = 1
-            args = (q, state.vectors, state.adj0,
-                    *seed_beam(*seeds, ef=ef, n_expand=e, node_mask=mask, k_out=k_out))
-            b, efp, kp, dp = q.shape[0], args[3].shape[1], args[8].shape[1], q.shape[1]
-            label = f"{form}+mask B={b} EF={efp} W={e * cfg.max_m0} E={e} KP={kp} Dp={dp}"
-            kd, ki, k_it = beam_loop(*args, **kw, max_iters=max_iters)
-            fresh, adj, (pd, pi, p_it) = _loop_visits(torch, args, dict(kw, max_iters=max_iters))
-            extra = {}
-            if form == "f32":
-                one_k = beam_loop(*args, **kw, max_iters=1)
-                one_p = beam_loop_plain(*args, **kw, max_iters=1)
-                err = _check_one_iteration(torch, label, one_k[0], one_k[1], one_p[0], one_p[1])
-                same = float((ki[:, :K] == pi[:, :K]).float().mean())
-                r_k, r_p = _recall(ki[:, :K].cpu().numpy(), gt), _recall(pi[:, :K].cpu().numpy(), gt)
-                if same < 0.99 or abs(r_k - r_p) > 0.002:
-                    raise AssertionError(
-                        f"beam_loop {label}: top-10 ids equal {same:.4f} (< 0.99?), recall@10 "
-                        f"{r_k:.4f} vs plain {r_p:.4f} (more than 0.002 apart?)")
-                extra = dict(top10_same=same, recall=r_k, plain_recall=r_p)
-                agree = (f"1 iteration max err {err:.2e}; full loop top-10 ids equal {same:.4f}, "
-                         f"recall@10 {r_k:.4f} vs plain {r_p:.4f}")
-            else:
-                if not (torch.equal(kd, pd) and torch.equal(ki, pi) and k_it == p_it):
-                    raise AssertionError(
-                        f"beam_loop {label}: not exactly equal to plain: ids differ in "
-                        f"{int((ki != pi).sum())} slots, iterations {k_it} vs {p_it}")
-                err, agree = 0.0, "exactly equal to plain"
-            ms, ms_source = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10,
-                                       *_LOOP_KERNEL)
-            plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
-            iters_t = torch.empty((b,), dtype=torch.int32)
-            bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj,
-                                                                  (kd, ki, iters_t), masked=True)
-            shapes[form].append(dict(
-                B=b, EF=efp, W=e * cfg.max_m0, E=e, KP=kp, Dp=dp, max_iters=max_iters, iters=k_it,
-                plain_iters=p_it, ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by,
-                distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err, **extra,
-            ))
-            _log(f"kernels: beam_loop {label}: {agree}, {k_it} iterations (plain {p_it}); device "
-                 f"{ms:.4f} ms per launch (bound {bound_ms:.5f} ms by {bound_by}: "
-                 f"{distinct / 1e6:.2f} MB distinct, {per_visit / 1e6:.2f} MB per visit); plain "
-                 f"loop {plain_ms:.2f} ms")
+        shapes[form] = _hold_masked(torch, form, cfg, state, q, mask, cases, gt)
     return shapes
+
+
+def _hold_masked(torch, form, cfg, state, q, mask, cases, gt=None):
+    """beam_loop(node_mask=) against beam_loop_plain(node_mask=) on one graph
+    under one mask, for each case (ef, k_out, max_iters) at E=1: f32 (``gt``
+    the exact masked top-10 ids) to phase 3b's tolerances, int8 and words
+    exactly equal in ids, distances and iterations. Returns each shape's
+    numbers: device time, bound (the distinct rows plus the mask bytes they
+    read), the plain loop's time."""
+    from tpuvec_torch.index.search import descend_to_level1, seed_beam
+    from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain
+
+    kw = dict(metric=cfg.graph_metric, normalized=cfg.normalized, node_mask=mask)
+    seeds = descend_to_level1(cfg, state, q)
+    shapes = []
+    for ef, k_out, max_iters in cases:
+        e = 1
+        args = (q, state.vectors, state.adj0,
+                *seed_beam(*seeds, ef=ef, n_expand=e, node_mask=mask, k_out=k_out))
+        b, efp, kp, dp = q.shape[0], args[3].shape[1], args[8].shape[1], q.shape[1]
+        label = f"{form}+mask B={b} EF={efp} W={e * cfg.max_m0} E={e} KP={kp} Dp={dp}"
+        kd, ki, k_it = beam_loop(*args, **kw, max_iters=max_iters)
+        fresh, adj, (pd, pi, p_it) = _loop_visits(torch, args, dict(kw, max_iters=max_iters))
+        extra = {}
+        if form == "f32":
+            one_k = beam_loop(*args, **kw, max_iters=1)
+            one_p = beam_loop_plain(*args, **kw, max_iters=1)
+            err = _check_one_iteration(torch, label, one_k[0], one_k[1], one_p[0], one_p[1])
+            same = float((ki[:, :K] == pi[:, :K]).float().mean())
+            r_k, r_p = _recall(ki[:, :K].cpu().numpy(), gt), _recall(pi[:, :K].cpu().numpy(), gt)
+            if same < 0.99 or abs(r_k - r_p) > 0.002:
+                raise AssertionError(
+                    f"beam_loop {label}: top-10 ids equal {same:.4f} (< 0.99?), recall@10 "
+                    f"{r_k:.4f} vs plain {r_p:.4f} (more than 0.002 apart?)")
+            extra = dict(top10_same=same, recall=r_k, plain_recall=r_p)
+            agree = (f"1 iteration max err {err:.2e}; full loop top-10 ids equal {same:.4f}, "
+                     f"recall@10 {r_k:.4f} vs plain {r_p:.4f}")
+        else:
+            if not (torch.equal(kd, pd) and torch.equal(ki, pi) and k_it == p_it):
+                raise AssertionError(
+                    f"beam_loop {label}: not exactly equal to plain: ids differ in "
+                    f"{int((ki != pi).sum())} slots, iterations {k_it} vs {p_it}")
+            err, agree = 0.0, "exactly equal to plain"
+        ms, ms_source = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10,
+                                   *_LOOP_KERNEL)
+        plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
+        iters_t = torch.empty((b,), dtype=torch.int32)
+        bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj,
+                                                              (kd, ki, iters_t), masked=True)
+        shapes.append(dict(
+            B=b, EF=efp, W=e * cfg.max_m0, E=e, KP=kp, Dp=dp, max_iters=max_iters, iters=k_it,
+            plain_iters=p_it, ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by,
+            distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err, **extra,
+        ))
+        _log(f"kernels: beam_loop {label}: {agree}, {k_it} iterations (plain {p_it}); device "
+             f"{ms:.4f} ms per launch (bound {bound_ms:.5f} ms by {bound_by}: "
+             f"{distinct / 1e6:.2f} MB distinct, {per_visit / 1e6:.2f} MB per visit); plain "
+             f"loop {plain_ms:.2f} ms")
+    return shapes
+
+
+def _result_arrays(results, k=K):
+    """Table results as (rowids, distances) [B, k], (-1, +inf) past the
+    rows found."""
+    ids = np.full((len(results), k), -1, dtype=np.int64)
+    dists = np.full((len(results), k), np.inf)
+    for b, res in enumerate(results):
+        for j, r in enumerate(res):
+            ids[b, j], dists[b, j] = r.rowid, r.distance
+    return ids, dists
+
+
+def _same_results(torch, label, got, want, ref):
+    """Two lists of table results agree as phase 3b's tolerance has it:
+    the same rows found, distances within 1e-5, rowids equal wherever a
+    slot's distance is more than 1e-5 from its neighbours'."""
+    (gi, gd), (wi, wd) = _result_arrays(got), _result_arrays(want)
+    _check_one_iteration(torch, f"(table) {label} vs {ref}", torch.from_numpy(gd),
+                         torch.from_numpy(gi), torch.from_numpy(wd), torch.from_numpy(wi), when="")
+
+
+def _timed(torch, fn, reps):
+    """(result of the first call, ms per call over ``reps`` more)."""
+    out = fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) / reps * 1e3
+
+
+def _table_split(torch, fn):
+    """One call of ``fn`` (a table read) with a synchronised timer around
+    each layer under VecTable: the descent and the level-0 loop of the HNSW
+    search, the exact scan, the rerank. Returns (total ms, {layer: ms}),
+    the host's decode, prepare and collect as the remainder."""
+    from tpuvec_torch.index import search
+    from tpuvec_torch.store import table as table_mod
+
+    spent = {}
+    patched = [(search, _timers(torch, search, ["descend_to_level1", "beam_search_level0"], spent)),
+               (table_mod, _timers(torch, table_mod, ["bruteforce_knn_internal", "rerank_topk",
+                                                       "expand_rerank_topk"], spent))]
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t) * 1e3
+    finally:
+        for module, originals in patched:
+            _restore(module, originals)
+    names = {"descend_to_level1": "descent", "beam_search_level0": "level-0 loop",
+             "bruteforce_knn_internal": "exact scan", "rerank_topk": "rerank",
+             "expand_rerank_topk": "expansion rerank"}
+    parts = {names[name]: sec * 1e3 for name, sec in spent.items()}
+    parts["host"] = total - sum(parts.values())
+    return total, parts
+
+
+def _fmt_split(parts):
+    return ", ".join(f"{name} {ms:.2f}" for name, ms in parts.items())
+
+
+def _timed_insert(torch, table, rows):
+    """insert_many of ``rows`` (rowids 0..n-1) with the insert stages'
+    timers and a synchronised timer around the candidates stage's descent
+    and level-0 loop. Returns (seconds, {part: seconds}), the host's decode,
+    prepare and the flush's own work as the remainder."""
+    from tpuvec_torch.index import build
+    from tpuvec_torch.utils import timing
+
+    spent = {}
+    originals = _timers(torch, build, ["descend_to_level1", "beam_search_level0"], spent)
+    timing.reset()
+    timing.enable()
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        table.insert_many(rows, rowids=list(range(len(rows))))
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+    finally:
+        timing.disable()
+        _restore(build, originals)
+    stats = timing.stats()
+    parts = {name[len("insert."):]: stats[name][0] for name in
+             ("insert.write", "insert.candidates", "insert.upper", "insert.connect")}
+    parts["host"] = total - sum(parts.values())
+    parts["flush"] = stats["table.flush"][0]
+    parts["candidates: descent"] = spent["descend_to_level1"]
+    parts["candidates: level-0 loop"] = spent["beam_search_level0"]
+    return total, parts
+
+
+def _even_rowid(rowid, values):
+    """Phase 8a's 50% predicate."""
+    return rowid % 2 == 0
+
+
+@contextlib.contextmanager
+def _loop_shapes_seen(torch):
+    """Inside the block, the shape (form, EF, W, E, KP, Dp) of every call
+    the level-0 search makes of the loop kernel's wrapper, gathered into
+    the set it yields (KP 0 when unmasked)."""
+    from tpuvec_torch.index import search
+
+    forms = {torch.float32: "f32", torch.int8: "int8", torch.int32: "words"}
+    seen, wrapper = set(), search.beam_loop
+
+    def recording(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, res_d=None,
+                  res_i=None, **kw):
+        masked, e = kw.get("node_mask") is not None, cand.shape[1]
+        seen.add((forms[vectors.dtype] + ("+mask" if masked else ""), beam_d.shape[1],
+                  e * adj0.shape[1], e, res_d.shape[1] if masked else 0, q.shape[1]))
+        return wrapper(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, res_d, res_i, **kw)
+
+    search.beam_loop = recording
+    try:
+        yield seen
+    finally:
+        search.beam_loop = wrapper
+
+
+def _check_held(phase, seen, shapes):
+    """Every shape the phase launched (``seen``) is among the shapes held
+    against the plain loop on its own graphs (``shapes``, form -> list)."""
+    held = {(form, s["EF"], s["W"], s["E"], s.get("KP", 0), s["Dp"])
+            for form, rows in shapes.items() for s in rows}
+    missing = seen - held
+    if missing:
+        raise AssertionError(f"table: phase {phase} launched the loop kernel at shapes no check "
+                             f"held against the plain loop: {sorted(missing)}")
+    _log(f"table: phase {phase} launched the loop kernel at {sorted(seen)} (form, EF, W, E, KP, "
+         "Dp), each held against the plain loop on its graph")
+
+
+def run_table_config5(torch, device):
+    """Phase 8a: BASELINE config 5 through VecTable at its source's full
+    size (the module docstring). Returns the table, the queries and the
+    loop kernel's launches on the path, for the checks after it."""
+    from tpuvec_torch.store import ColumnSpec, VecTable
+    from tpuvec_torch.types import DistanceMetric
+    from tpuvec_torch.utils.data import synthetic_embeddings
+
+    n, d = C5_N, C5_D
+    t0 = time.time()
+    data = synthetic_embeddings(n + 64, d, seed=5)
+    x, q = data[:n], data[n:]
+    parts = np.random.default_rng(7).integers(0, C5_TENANTS, n)
+    per_tenant = np.bincount(parts, minlength=C5_TENANTS)
+    # 256 queries and 256 update rows more, on the corpus's manifold
+    q256 = synthetic_embeddings(256, d, seed=6, structure_seed=5)
+    upd = synthetic_embeddings(256, d, seed=8, structure_seed=5)
+    rows = [{"e": x[i], "tenant": int(parts[i])} for i in range(n)]
+    cols = [ColumnSpec.vector("e", d, metric=DistanceMetric.COSINE), ColumnSpec.partition_key("tenant")]
+    t = VecTable("bench5", cols, initial_cap=n, device=device)
+    _log(f"table: config 5: {n} x {d} cosine, {C5_TENANTS} tenants ({per_tenant.min()}-"
+         f"{per_tenant.max()} rows each), default HnswParams(), initial_cap={n}; data made in "
+         f"{time.time() - t0:.1f}s")
+
+    # 1. insert
+    _reset_launches()
+    insert_s, split = _timed_insert(torch, t, rows)
+    del rows  # while the row dicts live, every garbage collection below walks them
+    gc.collect()
+    flush_launches, _ = _launches()
+    vc = t.vector_cols["e"]
+    if len(t) != n or int(vc.state.count) != n or flush_launches["f32"] == 0:
+        raise AssertionError(f"table: config 5 insert: {len(t)} rows, graph count "
+                             f"{int(vc.state.count)}, loop launches {flush_launches}")
+    _log(f"table: config 5: insert_many of {n} rows in {insert_s:.2f}s = {n / insert_s:.0f} vec/s "
+         f"(stage timers on); cap {t.cap}, cap_u {vc.config.cap_u}; split (s): "
+         + ", ".join(f"{name} {sec:.2f}" for name, sec in split.items())
+         + f"; loop kernel launches {flush_launches}")
+
+    # 2. single-tenant lookups (each a coded exact scan at ~256 rows a tenant)
+    probes = [(q[i % 64], int(parts[i * 97 % n])) for i in range(64)]
+
+    def singles():
+        return [t.knn("e", qq, k=K, partition=p) for qq, p in probes]
+
+    res, ms = _timed(torch, singles, 1)
+    for (qq, p), r in zip(probes, res):
+        if len(r) != min(K, per_tenant[p]) or any(parts[x.rowid] != p for x in r):
+            raise AssertionError(f"table: single-tenant knn of tenant {p}: {len(r)} rows, "
+                                 f"tenants {[int(parts[x.rowid]) for x in r]}")
+    single_qps = 64 / (ms / 1e3)
+    _log(f"table: config 5: 64 single-tenant knn(partition=) {ms / 64:.3f} ms each = "
+         f"{single_qps:.0f} QPS, purity 1.0, each min(k, tenant rows) long")
+    _log_busy(torch, "config 5 single-tenant knn", lambda: t.knn("e", q[0], k=K, partition=probes[0][1]))
+
+    # 3. per-query partitions, B=64 x 4 reps (as the source draws them)
+    rep_qs = [[q[j % 64] * (1.0 + 1e-4 * (r + 1)) for j in range(C5_B)] for r in range(C5_REPS)]
+    rep_parts = [[int(parts[(j * 97 + r) % n]) for j in range(C5_B)] for r in range(C5_REPS)]
+    batch = t.knn_many("e", rep_qs[0], k=K, partition=rep_parts[0])
+    _same_results(torch, "per-query partitions B=64", batch,
+                  [t.knn("e", qq, k=K, partition=p) for qq, p in zip(rep_qs[0], rep_parts[0])],
+                  "the single-tenant calls")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for qs_r, ps_r in zip(rep_qs, rep_parts):
+        outs = t.knn_many("e", qs_r, k=K, partition=ps_r)
+        if any(parts[x.rowid] != p for res_j, p in zip(outs, ps_r) for x in res_j):
+            raise AssertionError("table: per-query partitions returned a row of another tenant")
+    torch.cuda.synchronize()
+    batch_qps = C5_B * C5_REPS / (time.perf_counter() - t1)
+    _, batch_split = _table_split(torch, lambda: t.knn_many("e", rep_qs[0], k=K, partition=rep_parts[0]))
+    _log(f"table: config 5: per-query partitions B={C5_B} x {C5_REPS}: {batch_qps:.0f} QPS, purity "
+         f"1.0, equal to the single-tenant calls; one batch split (ms): {_fmt_split(batch_split)}")
+
+    # 4. unfiltered HNSW against the exact scan, 256 queries
+    def recall_point(label, **kw):
+        got, ms = _timed(torch, lambda: t.knn_many("e", q256, k=K, **kw), 3)
+        exact = t.knn_many("e", q256, k=K, exact=True, **kw)
+        ids, want = _result_arrays(got)[0], _result_arrays(exact)[0]
+        recall = _recall(ids, want)
+        _, sp = _table_split(torch, lambda: t.knn_many("e", q256, k=K, **kw))
+        _log(f"table: config 5: {label}: recall@10 {recall:.4f} against the exact scan, "
+             f"{ms:.2f} ms a batch of 256 = {256 / (ms / 1e3):.0f} QPS; split (ms): {_fmt_split(sp)}")
+        return dict(label=label, recall=recall, qps=256 / (ms / 1e3), ms=ms), ids
+
+    points = []
+    pt, _ = recall_point("HNSW ef=200 (default), unfiltered")
+    points.append(pt)
+    _log_busy(torch, "config 5 knn_many of 256, HNSW", lambda: t.knn_many("e", q256, k=K))
+    if pt["recall"] < 0.90:
+        raise AssertionError(f"table: config 5 HNSW recall@10 {pt['recall']:.4f} < 0.90")
+
+    # 5. a 50% predicate: in-beam filtered search (f32+mask)
+    before, _ = _launches()
+    pt, ids = recall_point("HNSW under a 50% predicate (rowid even)",
+                           predicate=_even_rowid)
+    points.append(pt)
+    after, _ = _launches()
+    if after["f32+mask"] == before["f32+mask"] or (ids[ids >= 0] % 2).any():
+        raise AssertionError(f"table: predicate query: f32+mask launches {before} -> {after}, "
+                             "or an odd rowid came back")
+
+    # 6. delete every 10th rowid
+    dels = list(range(0, n, 10))
+    t1 = time.perf_counter()
+    t.delete_many(dels)
+    torch.cuda.synchronize()
+    del_s = time.perf_counter() - t1
+    problems = t.integrity_check()
+    if problems:
+        raise AssertionError(f"table: integrity_check after deletes: {problems}")
+    pt, ids = recall_point(f"HNSW after delete_many of {len(dels)} rows")
+    points.append(pt)
+    if (ids[ids >= 0] % 10 == 0).any():
+        raise AssertionError("table: a deleted rowid came back")
+    _log(f"table: config 5: delete_many of {len(dels)} rowids in {del_s * 1e3:.1f} ms; "
+         "integrity_check() == []; no deleted rowid returned")
+
+    # 7. update 256 rows
+    ups = [r for r in range(n) if r % 10][:256]
+    t1 = time.perf_counter()
+    t.update_many(ups, [{"e": v} for v in upd])
+    torch.cuda.synchronize()
+    upd_s = time.perf_counter() - t1
+    if any(not np.array_equal(t.row(r)["e"].as_f32(), v) for r, v in zip(ups, upd)):
+        raise AssertionError("table: row() does not return an updated vector")
+    self_hits = np.mean([r[0].rowid == u for r, u in zip(t.knn_many("e", upd, k=1), ups)])
+    _log(f"table: config 5: update_many of 256 rows in {upd_s * 1e3:.1f} ms; row() returns the new "
+         f"vectors; HNSW top-1 is the updated row for {self_hits:.4f} of them")
+
+    # 8. rebuild
+    t1 = time.perf_counter()
+    t.rebuild("e")
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t1
+    pt, _ = recall_point("HNSW after rebuild")
+    points.append(pt)
+    if pt["recall"] < 0.90 or t.integrity_check():
+        raise AssertionError(f"table: after rebuild recall@10 {pt['recall']:.4f} < 0.90, or "
+                             f"integrity_check {t.integrity_check()}")
+    launches, bu = _launches()
+    if launches["f32"] == flush_launches["f32"] or bu or any(
+            launches[f] for f in launches if f not in ("f32", "f32+mask")):
+        raise AssertionError(f"table: config 5 launches {launches}, beam_update {bu}")
+    _log(f"table: config 5: rebuild of {len(t)} rows in {rebuild_s:.2f}s; loop kernel launches "
+         f"in phase 8a: {launches} (the flush {flush_launches['f32']})")
+    return dict(table=t, q256=q256, launches=launches, insert_s=insert_s, split=split, points=points,
+                single_qps=single_qps, batch_qps=batch_qps, del_s=del_s, upd_s=upd_s,
+                rebuild_s=rebuild_s)
+
+
+def check_table_loops(torch, device, c5):
+    """Phase 8a step 9, on the table's graph after the path: beam_loop
+    against beam_loop_plain at the shapes config 5's default HnswParams()
+    give it: search (256 queries at ef_search=200: EF=256, E=1, W=64),
+    construction (the same rows at ef_construction=400 with the build's
+    iteration budget: EF=512, E=2, W=128) and the predicate query's masked
+    search under the table's own 50% mask (k=10: KP=32, EF=256, W=64), at
+    phase 3b's tolerances. Returns the shapes by form."""
+    from tpuvec_torch.index.bruteforce import bruteforce_knn
+    from tpuvec_torch.index.build import _build_iter_budget
+    from tpuvec_torch.index.graph import prepare_vectors
+    from tpuvec_torch.index.search import default_max_iters
+
+    t = c5["table"]
+    vc = t.vector_cols["e"]
+    cfg, state = vc.config, vc.state
+    qp = prepare_vectors(cfg, c5["q256"], device=device)
+    live = torch.from_numpy(t._live[: t.cap].copy()).to(device)
+    gt = bruteforce_knn(qp, state.vectors, live, metric=cfg.graph_metric, k=K,
+                        normalized=True)[1].cpu().numpy()
+    efc = max(cfg.ef_construction, cfg.max_m0)
+    cases = [(qp, gt, cfg.ef_search, 1, default_max_iters(cfg.ef_search, 1)),
+             (qp, gt, efc, 2, _build_iter_budget(cfg.cap, efc, 2))]
+    even = torch.from_numpy(t._filter_mask(predicate=_even_rowid)).to(device)
+    gt_even = bruteforce_knn(qp, state.vectors, even, metric=cfg.graph_metric, k=K,
+                             normalized=True)[1].cpu().numpy()
+    return {"f32": _hold_loop(torch, cfg, state, cases),
+            "f32+mask": _hold_masked(torch, "f32", cfg, state, qp, even,
+                                     [(cfg.ef_search, K, default_max_iters(cfg.ef_search, 1))],
+                                     gt_even)}
+
+
+def run_table_config4(torch, device, n):
+    """Phase 8b: config 4 through VecTable (the module docstring). Returns
+    the loop kernel's launches on the path and the points."""
+    from tpuvec_torch.index.bruteforce import bruteforce_knn
+    from tpuvec_torch.index.params import HnswParams
+    from tpuvec_torch.store import ColumnSpec, VecTable
+    from tpuvec_torch.types import DistanceMetric, IndexQuantization
+
+    cos = DistanceMetric.COSINE
+    x, qpool = _config4_data(n)
+    qs = qpool[:NQ]
+    params = HnswParams(m=16, max_m0=32, ef_construction=200, ef_search=128)
+    cols = [ColumnSpec.vector("e", QD, metric=cos, quantization=IndexQuantization.BINARY, params=params),
+            ColumnSpec.metadata("bucket")]
+    t = VecTable("config4", cols, initial_cap=n + 1, device=device)
+    rows = [{"e": x[i], "bucket": i % 10} for i in range(n)]
+    xf, qf = torch.from_numpy(x).to(device), torch.from_numpy(qs).to(device)
+    bucket5 = torch.arange(n, device=device) % 10 == 5
+    gts = {None: bruteforce_knn(qf, xf, torch.ones(n, dtype=torch.bool, device=device),
+                                metric=cos, k=K)[1].cpu().numpy(),
+           5: bruteforce_knn(qf, xf, bucket5, metric=cos, k=K)[1].cpu().numpy()}
+    del xf
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    t.insert_many(rows, rowids=list(range(n)))
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    del rows
+    gc.collect()
+    build_launches, _ = _launches()
+    vc = t.vector_cols["e"]
+    if vc.shadow is None or tuple(vc.shadow.shape) != (vc.config.cap, QD) or vc.shadow.device.type != t.device.type:
+        raise AssertionError("table: config 4 column holds no device shadow")
+    _log(f"table: config 4: insert_many of {n} x {QD} BINARY rows in {insert_s:.2f}s = "
+         f"{n / insert_s:.0f} vec/s; f32 shadow on the card ({vc.config.cap} x {QD}); loop kernel "
+         f"launches {build_launches}")
+    points = []
+    for bucket in (None, 5):
+        kw = {} if bucket is None else dict(filters={"bucket": bucket})
+        label = "unfiltered" if bucket is None else "filters={'bucket': 5} (10%)"
+        res, ms = _timed(torch, lambda: t.knn_many("e", qs, k=K, **kw), 3)
+        ids = _result_arrays(res)[0]
+        recall = _recall(ids, gts[bucket])
+        _, sp = _table_split(torch, lambda: t.knn_many("e", qs, k=K, **kw))
+        if "expansion rerank" not in sp:
+            raise AssertionError(f"table: config 4 {label}: the device expansion rerank did not run")
+        if recall < 0.90 or (bucket is not None and (ids[ids >= 0] % 10 != bucket).any()):
+            raise AssertionError(f"table: config 4 {label}: recall@10 {recall:.4f} < 0.90, or a "
+                                 "rowid outside the bucket")
+        points.append(dict(label=label, recall=recall, qps=NQ / (ms / 1e3), ms=ms))
+        if bucket is None:
+            _log_busy(torch, "config 4 knn_many of 256", lambda: t.knn_many("e", qs, k=K))
+        _log(f"table: config 4: knn_many {label}, coarse_k 100, expansion on: recall@10 "
+             f"{recall:.4f} against the exact f32 scan, {ms:.2f} ms a batch of {NQ} = "
+             f"{NQ / (ms / 1e3):.0f} QPS; split (ms): {_fmt_split(sp)}")
+    launches, bu = _launches()
+    if (build_launches["words"] == 0 or launches["words"] == build_launches["words"]
+            or launches["words+mask"] == 0 or bu
+            or any(launches[f] for f in launches if f not in ("words", "words+mask"))):
+        raise AssertionError(f"table: config 4 launches {launches}, beam_update {bu}")
+    _log(f"table: config 4: loop kernel launches in phase 8b: {launches}")
+    return dict(table=t, qs=qs, qc=qpool[NQ : NQ + 1024], launches=launches, insert_s=insert_s,
+                points=points)
+
+
+def check_table4_loops(torch, device, c4t):
+    """Phase 8b's holds, on the binary table's graph after the path: the
+    words form against beam_loop_plain at the flush's construction shape
+    (1024 held-out rows, EF=256, E=2, W=64) and the reads' search shape
+    (k=100 at ef_search=128: EF=128, E=1, W=32), and the words+mask form
+    under the table's own filters={"bucket": 5} mask at the filtered
+    read's shape (k_out=100: KP=256, EF=128), each exactly equal. Returns
+    the shapes by form."""
+    from tpuvec_torch.index.build import _build_iter_budget
+    from tpuvec_torch.index.graph import prepare_vectors
+    from tpuvec_torch.index.search import default_max_iters
+
+    t = c4t["table"]
+    vc = t.vector_cols["e"]
+    cfg, state = vc.config, vc.state
+    qs, qc = (prepare_vectors(cfg, x, device=device) for x in (c4t["qs"], c4t["qc"]))
+    coarse_k = max(10 * K, 96)  # VecTable._binary_rerank's default
+    ef = max(cfg.ef_search, coarse_k)  # search_graph's
+    efc = max(cfg.ef_construction, cfg.max_m0)
+    bucket5 = torch.from_numpy(t._filter_mask(filters={"bucket": 5})).to(device)
+    cases = [(qs, ef, 1, default_max_iters(ef, 1)), (qc, efc, 2, _build_iter_budget(cfg.cap, efc, 2))]
+    return {"words": _hold_quantized(torch, "words", cfg, state,
+                                     ("Hamming", cfg.graph_metric, cfg.normalized, 0.0), cases),
+            "words+mask": _hold_masked(torch, "words", cfg, state, qs, bucket5,
+                                       [(ef, coarse_k, default_max_iters(ef, 1))])}
 
 
 def main() -> int:
@@ -1192,6 +1700,22 @@ def main() -> int:
     qshapes = check_quantized_loops(torch, device, qruns)
     filt = run_filtered(torch, device, run, qruns)
     mshapes = check_masked_loops(torch, device, run, qruns, filt)
+    t8 = time.time()
+    with _loop_shapes_seen(torch) as seen:
+        c5 = run_table_config5(torch, device)
+    c5_shapes = check_table_loops(torch, device, c5)
+    _check_held("8a", seen, c5_shapes)
+    del c5["table"]
+    torch.cuda.empty_cache()
+    with _loop_shapes_seen(torch) as seen:
+        c4t = run_table_config4(torch, device, args.n)
+    c4_shapes = check_table4_loops(torch, device, c4t)
+    _check_held("8b", seen, c4_shapes)
+    del c4t["table"]
+    _log(f"table: phase 8 took {time.time() - t8:.1f}s")
+
+    def on(phase, shapes):  # each shape with the phase whose graph held it
+        return [dict(s, on=phase) for s in shapes]
 
     def entry(name, replaces, launches, shapes, main_shape):
         return {
@@ -1199,7 +1723,8 @@ def main() -> int:
             "route": "cuda",
             "source": "tpuvec_torch/csrc/beam_update.cu",
             "replaces": replaces,
-            "launches": launches,
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": main_shape["ms"],
             "ms_source": main_shape["ms_source"],
@@ -1214,21 +1739,34 @@ def main() -> int:
     # int8 form, of its squared-L2 form, the one config 3 runs)
     loop_src = "tpuvec/ops/pallas_beam.py:144 + tpuvec/index/search.py:336-357"
     kernels_line = [
-        entry("beam_update", "tpuvec/ops/pallas_beam.py:144", run["launches"]["beam_update"],
-              update_shapes, update_shapes[-1]),
-        entry("beam_search_level0[f32]", loop_src, run["launches"]["f32"], loop_shapes, loop_shapes[-1]),
-        entry("beam_search_level0[int8]", loop_src, qruns["int8"]["launches"], qshapes["int8"],
-              qshapes["int8"][1]),
-        entry("beam_search_level0[words]", loop_src, qruns["words"]["launches"], qshapes["words"],
+        entry("beam_update", "tpuvec/ops/pallas_beam.py:144",
+              {"phase 4": run["launches"]["beam_update"]}, on("phase 3", update_shapes),
+              update_shapes[-1]),
+        entry("beam_search_level0[f32]", loop_src,
+              {"phase 4": run["launches"]["f32"], "phase 8a": c5["launches"]["f32"]},
+              on("phase 3b", loop_shapes) + on("phase 8a", c5_shapes["f32"]), loop_shapes[-1]),
+        entry("beam_search_level0[int8]", loop_src, {"phase 6": qruns["int8"]["launches"]},
+              on("phase 3c", qshapes["int8"]), qshapes["int8"][1]),
+        entry("beam_search_level0[words]", loop_src,
+              {"phase 6": qruns["words"]["launches"], "phase 8b": c4t["launches"]["words"]},
+              on("phase 3c", qshapes["words"]) + on("phase 8b", c4_shapes["words"]),
               qshapes["words"][1]),
     ]
     # the masked forms under the 10% mask; main shape: f32's at ef=64,
     # int8's and words' the one shape of configs 3 and 4 (k=48, ef=64)
     masked_src = "tpuvec/index/search.py:295-316 + 363-383"
+    masked_paths = {
+        "f32": {"phase 7": filt["launches"]["f32+mask"], "phase 8a": c5["launches"]["f32+mask"]},
+        "int8": {"phase 7": filt["launches"]["int8+mask"]},
+        "words": {"phase 7": filt["launches"]["words+mask"],
+                  "phase 8b": c4t["launches"]["words+mask"]},
+    }
+    table_masked = {"f32": on("phase 8a", c5_shapes["f32+mask"]),
+                    "words": on("phase 8b", c4_shapes["words+mask"])}
     kernels_line += [
-        entry(f"beam_search_level0[{form}+mask]", masked_src, filt["launches"][f"{form}+mask"],
-              mshapes[form], mshapes[form][0])
-        for form in ("f32", "int8", "words")
+        entry(f"beam_search_level0[{form}+mask]", masked_src, paths,
+              on("phase 3d", mshapes[form]) + table_masked.get(form, []), mshapes[form][0])
+        for form, paths in masked_paths.items()
     ]
     _log(card)
     _log(json.dumps({"kernels": kernels_line}))
