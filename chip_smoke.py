@@ -7,8 +7,10 @@ Phases, one line each; any failure exits non-zero:
 
 1. card: the card's name and power limit from nvidia-smi (no card: exit);
 2. build: compile every CUDA kernel from tpuvec_torch/csrc with nvcc (the
-   entry points tpuvec_beam_update and tpuvec_beam_search_level0), and
-   print ptxas's registers and spills for each kernel and form;
+   entry points tpuvec_beam_update, tpuvec_beam_search_level0 and
+   tpuvec_level0_occupancy), and print ptxas's registers, spills and
+   static shared memory for each kernel and each of the loop kernel's six
+   forms;
 3. kernels: beam_update (one beam iteration) against beam_update_plain on
    the card at the shapes of the main path, exactly, with and without ties;
    its device time per launch (torch.profiler) beside its bound, and the
@@ -27,7 +29,11 @@ Phases, one line each; any failure exits non-zero:
    wherever a slot's distance is more than 1e-5 from its neighbours'; over
    the full loop >= 99% of top-10 ids equal per (query, rank) and
    recall@10 within 0.002 of the plain loop's; its device time per launch
-   beside its bound and the plain loop's time;
+   beside its bound and the plain loop's time. Also at the construction
+   shape: the kernel with 1, 5, 8 and W row slots in its ring exactly equal
+   to the kernel with the slots its launch plan gives (the refills and the
+   ring's laps), and with rows of 16384 floats (past 48 KB of shared
+   memory) against the plain loop, and of 65536 (past the card): ValueError;
 5. trace: a separate traced run, for where the time goes: the build with
    a synchronised timer per insert stage and around the candidates stage's
    descent and level-0 loop, one search batch split the same way, and one
@@ -120,6 +126,21 @@ Phases, one line each; any failure exits non-zero:
 Device times per launch are torch.profiler's; where its trace kept no
 launch of a kernel, they are CUDA events around the launches, and the
 kernels line says so ("ms_source": "cuda_events" in place of "profiler").
+Every loop-kernel shape also carries its launch plan (ops/beam.py:
+_loop_plan): "ring_slots", "smem_bytes", "blocks_per_sm" (the CUDA
+occupancy query, beside the plan's own count) and "waves"; "us_per_iter",
+the device time per launch over the launch's iterations; and
+"phase_cycles", the SM cycles of each phase of an iteration (dedup, rows,
+merge, frontier, each its own work and then its wait at the barrier after
+it) from the same source built with -DTPUVEC_LOOP_CLOCKS, a second build
+that phase 2 starts beside the first.
+
+    python3 chip_smoke.py --against NAME=PATH[,FLAG...] ...
+
+also builds the loop kernel from another beam_update.cu (an earlier
+commit's, or a variant, with extra nvcc FLAGs) and times it beside this
+tree's at every held shape, in turns (other, this, this, other; CUDA
+events), under "against" in the shape's numbers.
 The last two lines are a JSON line with every kernel's numbers (its
 launches on the main paths in all, and by phase in "launches_by_path")
 and the JSON line {"ok": true, "device": {...}}.
@@ -514,6 +535,235 @@ def _check_one_iteration(torch, label, kd, ki, pd, pi, tol=1e-5, when="after 1 i
     return err
 
 
+# Loop kernels built beside this tree's: the --against ones by name, each
+# held shape also timed with them in turns; and this tree's own source
+# built with -DTPUVEC_LOOP_CLOCKS, for each held shape's phase cycles.
+_AGAINST = {}
+_CLOCKS = "phase-clocks"
+
+
+class _OtherLoopKernel:
+    """A loop kernel library built from another beam_update.cu, in the place
+    of this tree's in beam_loop's calls (``_using``). A source whose entry
+    point takes no ring size (before the ring) gets the call without it."""
+
+    def __init__(self, lib, takes_ring):
+        self._lib, self._takes_ring = lib, takes_ring
+        self.clocks = getattr(lib, "tpuvec_loop_clocks", None)  # a clocks build's
+
+    def tpuvec_beam_search_level0(self, *args):
+        if not self._takes_ring:  # drop `ring`, the argument before the stream
+            args = args[:-2] + args[-1:]
+        return self._lib.tpuvec_beam_search_level0(*args)
+
+    def tpuvec_cuda_error_string(self, code):
+        return self._lib.tpuvec_cuda_error_string(code)
+
+
+def _start_other_builds(specs):
+    """Start one nvcc for this tree's source with -DTPUVEC_LOOP_CLOCKS and one
+    for each NAME=PATH[,FLAG...] of --against (flags as this tree's kernels
+    are built with, and FLAGs); returns name -> (process, library path)."""
+    import hashlib
+    from pathlib import Path
+
+    from tpuvec_torch import kernels
+
+    builds = {_CLOCKS: (kernels._CSRC / "beam_update.cu", ["-DTPUVEC_LOOP_CLOCKS"])}
+    for spec in specs:
+        name, _, rest = spec.partition("=")
+        path, *flags = rest.split(",")
+        builds[name] = (Path(path), flags)
+    kernels._BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (src, flags) in builds.items():
+        digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+        out = kernels._BUILD / f"lib{name}-{digest}.so"
+        cmd = [kernels._nvcc(), *kernels._NVCC_FLAGS, *flags, "-o", str(out), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), out)
+    return procs
+
+
+def _load_other_builds(procs):
+    """Wait for _start_other_builds' builds, log their ptxas lines and load
+    them: the clocks build returned, the --against ones into _AGAINST."""
+    import ctypes
+
+    from tpuvec_torch import kernels
+
+    clocks = None
+    for name, (proc, out) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{report}")
+        if name != _CLOCKS:
+            _log_ptxas(f"against {name}", report)
+        lib = ctypes.CDLL(str(out))
+        takes_ring = hasattr(lib, "tpuvec_level0_occupancy")
+        argtypes, restype = kernels.SOURCES["beam_update"]["tpuvec_beam_search_level0"]
+        lib.tpuvec_beam_search_level0.argtypes = argtypes if takes_ring else argtypes[:-2] + argtypes[-1:]
+        lib.tpuvec_beam_search_level0.restype = restype
+        lib.tpuvec_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.tpuvec_cuda_error_string.restype = ctypes.c_char_p
+        if name == _CLOCKS:
+            lib.tpuvec_loop_clocks.argtypes = [ctypes.c_void_p]
+            lib.tpuvec_loop_clocks.restype = ctypes.c_int
+            clocks = _OtherLoopKernel(lib, takes_ring)
+            continue
+        _AGAINST[name] = _OtherLoopKernel(lib, takes_ring)
+        _log(f"build: --against {name} built from {out.name} (entry point "
+             f"{'with' if takes_ring else 'without'} a ring size)")
+    return clocks
+
+
+@contextlib.contextmanager
+def _using(lib):
+    """beam_loop's calls go to ``lib`` inside the block."""
+    from tpuvec_torch import kernels
+
+    own = kernels.load("beam_update")
+    kernels._libs["beam_update"] = lib
+    try:
+        yield
+    finally:
+        kernels._libs["beam_update"] = own
+
+
+@contextlib.contextmanager
+def _ring_slots(ring):
+    """beam_loop launches with ``ring`` row slots inside the block, whatever
+    its launch plan says."""
+    from tpuvec_torch.ops import beam
+
+    plan = beam._loop_plan
+    beam._loop_plan = lambda *a, **k: (ring, *plan(*a, **k)[1:])
+    try:
+        yield
+    finally:
+        beam._loop_plan = plan
+
+
+def _occupancy(form, ef, m0, e, dp, kp, ring):
+    """(blocks an SM holds, shared memory a block) of the loop kernel at this
+    shape, from the kernel library (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+
+    from tpuvec_torch import kernels
+    from tpuvec_torch.ops.beam import _ROWS
+
+    codes = {name: code for name, _, code in _ROWS.values()}
+    masked = form.endswith("+mask")
+    smem = ctypes.c_int64()
+    blocks = kernels.load("beam_update").tpuvec_level0_occupancy(
+        codes[form.removesuffix("+mask")], int(masked), ef, m0, e, dp, kp if masked else 0, ring,
+        ctypes.byref(smem))
+    if blocks < 0:
+        raise RuntimeError(f"tpuvec_level0_occupancy failed for {form} at EF={ef}: {blocks}")
+    return blocks, smem.value
+
+
+def _loop_fields(torch, form, args, kw, max_iters, ms, iters):
+    """The launch plan's numbers of one loop-kernel shape (ring slots, shared
+    memory, blocks an SM holds by the CUDA occupancy query and by the plan,
+    waves), its device time per iteration run, the cycles of each phase of
+    an iteration (the clocks build), and, for each --against kernel, both
+    kernels' time per launch by CUDA events, in turns (other, this, this,
+    other). Fails if the plan's shared memory is not the kernel's."""
+    from tpuvec_torch.ops.beam import _loop_plan, beam_loop
+
+    q, adj0, beam_d, cand = args[0], args[2], args[3], args[6]
+    b, efp, dp, e, m0 = q.shape[0], beam_d.shape[1], q.shape[1], cand.shape[1], adj0.shape[1]
+    kp = args[8].shape[1] if form.endswith("+mask") else 0
+    ring, smem, plan_bps, waves = _loop_plan(form, b, efp, e * m0, e, dp, kp)
+    bps, kernel_smem = _occupancy(form, efp, m0, e, dp, kp, ring)
+    if kernel_smem != smem:
+        raise AssertionError(f"beam_loop {form} EF={efp} W={e * m0}: the plan counts {smem} bytes "
+                             f"of shared memory, the kernel {kernel_smem}")
+    out = dict(ring_slots=ring, smem_bytes=smem, blocks_per_sm=bps, plan_blocks_per_sm=plan_bps,
+               waves=waves, us_per_iter=ms * 1e3 / max(iters, 1))
+
+    def call():
+        beam_loop(*args, **kw, max_iters=max_iters)
+
+    out["phase_cycles"] = _phase_cycles(_PHASE_CLOCKS, call)
+    if _AGAINST:
+        out["against"] = {}
+        for name, lib in _AGAINST.items():
+            turns = []
+            for other in (True, False, False, True):
+                with _using(lib) if other else contextlib.nullcontext():
+                    call()  # the library's first launch loads its module
+                    turns.append(_launch_ms(call, 10, _LOOP_KERNEL[1]))
+            out["against"][name] = dict(ms=[turns[0], turns[3]], this_ms=[turns[1], turns[2]])
+            _log(f"kernels: {form} B={b} EF={efp} W={e * m0}: {name} {turns[0]:.4f} / "
+                 f"{turns[3]:.4f} ms, this tree {turns[1]:.4f} / {turns[2]:.4f} ms per launch "
+                 "(CUDA events, in turns)")
+    return out
+
+
+# The clocks build of this tree's loop kernel (_load_other_builds), and the
+# phases of an iteration as it times them
+_PHASE_CLOCKS = None
+_PHASES = ("dedup", "dedup_wait", "rows", "rows_wait", "merge_window", "merge_beam",
+           "merge_wait", "frontier", "frontier_wait")
+
+
+def _phase_cycles(lib, call):
+    """SM cycles of each phase of a block's iteration, barrier to barrier, as
+    thread 0 of each block sees them, averaged over the blocks' iterations
+    of 10 launches of ``call`` through ``lib`` (a -DTPUVEC_LOOP_CLOCKS
+    build)."""
+    import ctypes
+
+    import torch
+
+    clocks = (ctypes.c_uint64 * (len(_PHASES) + 1))()
+    with _using(lib):
+        torch.cuda.synchronize()
+        lib.clocks(clocks)
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        if lib.clocks(clocks):
+            raise RuntimeError("tpuvec_loop_clocks failed")
+    iters = max(clocks[len(_PHASES)], 1)
+    cycles = {p: clocks[k] / iters for k, p in enumerate(_PHASES)}
+    total = sum(cycles.values())
+    _log("kernels:   phase cycles per block iteration: " + ", ".join(
+        f"{p} {c:.0f} ({c / total:.0%})" for p, c in cycles.items()) + f"; {total:.0f} in all")
+    return cycles
+
+
+def _fmt_plan(plan):
+    return (f"{plan['us_per_iter']:.2f} us per iteration; {plan['ring_slots']} ring slots, "
+            f"{plan['smem_bytes']} B of shared memory, {plan['blocks_per_sm']} blocks an SM "
+            f"(plan {plan['plan_blocks_per_sm']}), {plan['waves']} waves")
+
+
+def _check_ring_sizes(torch, cfg, state, q, ef, e, max_iters):
+    """The loop kernel with fewer ring slots than its plan (one slot, a few,
+    eight) and with the whole window, on phase 4's graph: every result
+    exactly equal to the planned ring's, since a row's distance is reduced
+    the same way in whatever slot it lands. Fewer slots than fresh rows run
+    the refills and the ring's laps within an iteration."""
+    from tpuvec_torch.index.search import descend_to_level1, seed_beam
+    from tpuvec_torch.ops.beam import beam_loop
+
+    kw = dict(metric=cfg.graph_metric, normalized=cfg.normalized, max_iters=max_iters)
+    args = (q, state.vectors, state.adj0, *seed_beam(*descend_to_level1(cfg, state, q), ef=ef, n_expand=e))
+    want = beam_loop(*args, **kw)
+    w = e * cfg.max_m0
+    for ring in (1, 5, 8, w):
+        with _ring_slots(ring):
+            got = beam_loop(*args, **kw)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]):
+            raise AssertionError(f"beam_loop B={q.shape[0]} EF={args[3].shape[1]} W={w}: {ring} ring "
+                                 "slots give another result than the planned ring")
+    _log(f"kernels: beam_loop at B={q.shape[0]} EF={args[3].shape[1]} W={w} with 1, 5, 8 and {w} "
+         "ring slots exactly equal to its planned ring")
+
+
 def _check_loop_smem(torch, device):
     """The loop kernel with rows past 48 KB of shared memory (the opt-in
     path) against the plain loop after one iteration, and with rows past
@@ -567,6 +817,7 @@ def check_loop_kernel(torch, device, run):
         (qc, gt_c.cpu().numpy(), efc, 2, _build_iter_budget(cfg.cap, efc, 2)),
     ]
     _check_loop_smem(torch, device)
+    _check_ring_sizes(torch, cfg, state, qc, efc, 2, cases[1][4])
     return _hold_loop(torch, cfg, state, cases)
 
 
@@ -604,12 +855,13 @@ def _hold_loop(torch, cfg, state, cases):
         plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
         iters_t = torch.empty((b,), dtype=torch.int32)
         bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj, (kd, ki, iters_t))
+        plan = _loop_fields(torch, "f32", args, kw, max_iters, ms, k_it)
         shapes.append(dict(
             B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_it, plain_iters=p_it,
             ms=ms, ms_source=ms_source, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by,
             distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err,
-            top10_same=same, recall=r_k, plain_recall=r_p,
+            top10_same=same, recall=r_k, plain_recall=r_p, **plan,
         ))
         _log(
             f"kernels: beam_loop ~ plain at {label} Dp={dp}: 1 iteration max err {err:.2e}; "
@@ -617,7 +869,7 @@ def _hold_loop(torch, cfg, state, cases):
             f"recall@10 {r_k:.4f} vs plain {r_p:.4f}; device {ms:.4f} ms per launch "
             f"(bound {bound_ms:.5f} ms by {bound_by}: {distinct / 1e6:.2f} MB distinct, "
             f"{per_visit / 1e6:.2f} MB per visit); back-to-back calls {call_ms:.4f} ms, "
-            f"plain loop {plain_ms:.2f} ms"
+            f"plain loop {plain_ms:.2f} ms; {_fmt_plan(plan)}"
         )
     return shapes
 
@@ -972,17 +1224,19 @@ def _hold_quantized(torch, form, cfg, state, metric, cases):
         plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
         iters_t = torch.empty((b,), dtype=torch.int32)
         bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj, (kd, ki, iters_t))
+        plan = _loop_fields(torch, form, args, kw, max_iters, ms, k_it)
         shapes.append(dict(
             metric=mlabel, B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_it,
             ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by,
-            distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err,
+            distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err, **plan,
         ))
         same = "exactly equal to plain" if tol == 0.0 else f"within {tol:g} of plain (max err {err:.2e})"
         _log(
             f"kernels: beam_loop {label}: {same}, {k_it} iterations; device {ms:.4f} ms "
             f"per launch (bound {bound_ms:.5f} ms by {bound_by}: {distinct / 1e6:.2f} MB "
-            f"distinct, {per_visit / 1e6:.2f} MB per visit); plain loop {plain_ms:.2f} ms"
+            f"distinct, {per_visit / 1e6:.2f} MB per visit); plain loop {plain_ms:.2f} ms; "
+            f"{_fmt_plan(plan)}"
         )
     return shapes
 
@@ -1239,16 +1493,17 @@ def _hold_masked(torch, form, cfg, state, q, mask, cases, gt=None):
         iters_t = torch.empty((b,), dtype=torch.int32)
         bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj,
                                                               (kd, ki, iters_t), masked=True)
+        plan = _loop_fields(torch, form + "+mask", args, kw, max_iters, ms, k_it)
         shapes.append(dict(
             B=b, EF=efp, W=e * cfg.max_m0, E=e, KP=kp, Dp=dp, max_iters=max_iters, iters=k_it,
             plain_iters=p_it, ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by,
-            distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err, **extra,
+            distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err, **extra, **plan,
         ))
         _log(f"kernels: beam_loop {label}: {agree}, {k_it} iterations (plain {p_it}); device "
              f"{ms:.4f} ms per launch (bound {bound_ms:.5f} ms by {bound_by}: "
              f"{distinct / 1e6:.2f} MB distinct, {per_visit / 1e6:.2f} MB per visit); plain "
-             f"loop {plain_ms:.2f} ms")
+             f"loop {plain_ms:.2f} ms; {_fmt_plan(plan)}")
     return shapes
 
 
@@ -1672,6 +1927,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=N, help="corpus rows (bench.py's size: 1000000)")
+    ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH",
+                    help="also build the loop kernel from another beam_update.cu (an earlier "
+                         "commit's, or a variant) and time it at every held shape, in turns "
+                         "with this tree's")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1686,11 +1945,14 @@ def main() -> int:
 
     resolve(device)
     t0 = time.time()
+    others = _start_other_builds(args.against)
     built = kernels.build_all()
     entry_points = {name: [fn for fn in kernels.SOURCES[name] if "cuda_error" not in fn] for name in built}
     _log(f"build: {entry_points} compiled and loaded in {time.time() - t0:.1f}s")
     for name in built:
         _log_ptxas(name, kernels.ptxas_report(name))
+    global _PHASE_CLOCKS
+    _PHASE_CLOCKS = _load_other_builds(others)
 
     update_shapes = check_beam_kernel(torch, device)
     run = run_main_path(torch, device, args.n)

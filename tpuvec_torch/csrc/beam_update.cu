@@ -12,24 +12,35 @@
 // contracts are in tpuvec_torch/ops/beam.py, whose beam_update_plain and
 // beam_loop_plain are the plain versions.
 //
-// The iteration step (S = EF + W entries; one block of kThreads per query):
-//   1. dedup: one warp per window entry; its lanes stride over the beam ids
-//      (and, with E > 1, the earlier window ids) and combine with
-//      __any_sync. All fresh flags are computed before a barrier and the
-//      masking ((+inf, -1) for duplicates and ids < 0) comes after it, so no
-//      warp reads an id that another has already masked.
-//   2. merge, stable and O(S log S): the W window entries are ranked among
-//      themselves by (distance, position) with W^2 compares in shared memory
-//      (W <= 64 on the main path). Beam entry j goes to slot
-//      j + #{window w : d_w < d_j}, a binary search over the sorted window;
-//      window entry w to slot wrank(w) + #{beam j : d_j <= d_w}, a binary
-//      search over the beam, which is sorted ascending by contract. That is
-//      the stable sort of beam ++ window, ties included (beam before window,
-//      the window in its order), so it equals beam_update_plain bit for bit.
-//   3. frontier: warp ballots turn the unexpanded flags into bit words; each
-//      thread ranks its own slot by a popcount prefix over the words, so the
-//      first E unexpanded slots are selected in parallel. `active` is the
-//      definition of ops/beam.py:frontier.
+// The iteration step (EF beam slots, W window entries; one block of
+// kThreads per query):
+//   1. dedup: each window entry is taken by a group of G lanes (G = 256 /
+//      next_pow2(W), 1..32, so the whole block is at work); the group's
+//      lanes stride over the beam ids (and, with E > 1, the earlier window
+//      ids) in 16-byte loads, four in flight, and combine by ballot. Each
+//      warp claims places in the fresh list for its fresh entries with one
+//      shared atomicAdd (a ballot's popcount), so the fresh list is in no
+//      fixed order: each fresh entry keeps its window position j beside its
+//      id, and the merge orders by (distance, j). Entries that are not
+//      fresh are never written: they are (+inf, -1) in the plain update
+//      and cannot reach the EF kept slots (below). Barrier.
+//   2. merge, by counting, with no sorted copy of the fresh entries: fresh
+//      entry f goes to slot #{fresh h before f by (distance, position)} +
+//      #{beam j : d_j <= d_f}; beam entry j to slot j + #{fresh f : d_f <
+//      d_j}. Each count is taken by the entry's group of lanes in 16-byte
+//      loads, without branches, several in flight (merge_window,
+//      merge_beam); the count over the beam, when it would take more than
+//      four loads a lane, is a binary search (the beam is sorted ascending
+//      by contract). That is the stable sort
+//      of beam ++ window, ties included (beam before window, the window in
+//      its order), kept to EF, so it equals beam_update_plain bit for bit:
+//      an entry that is not fresh is (+inf, -1) there and sorts after all
+//      EF beam entries (beam before window on ties), so it is never kept.
+//      Barrier.
+//   3. frontier, by warp 0 alone: a ballot a word of 32 slots marks the
+//      unexpanded finite slots, a popcount prefix ranks them, the first E
+//      become the next frontier, and the scan stops once it has E. `active`
+//      is the definition of ops/beam.py:frontier.
 //
 // beam_update_kernel is load -> step -> store. Its bound: per launch it
 // reads beam_d, beam_i, beam_x, nbrs, nd and writes the three beam arrays,
@@ -38,13 +49,57 @@
 // construction shape (B=1024, EF=256, W=64, E=2).
 //
 // beam_search_level0_kernel runs the whole level-0 loop of one query in one
-// block. The query row, the beam and the window live in shared memory. Each
-// iteration reads the E frontier adjacency rows of adj0 (ids < 0 give a
-// window of -1), dedups the window, and only then reads the vector rows of
-// the fresh entries: warps take the fresh rows in turn and read each with
-// 16-byte loads, kRowChunk loads per lane issued before any is reduced, so a
-// row's loads are in flight together. Then the shared step. A query stops
-// when it is inactive or has run max_iters iterations.
+// block, until the query is inactive or has run max_iters iterations. The
+// query row, the beam, the window and a ring of R row slots live in shared
+// memory. An iteration, after the previous one chose the frontier:
+//   - warp 0 has read the frontier's adjacency rows into the window right
+//     after choosing it (ids < 0 give -1), all of a lane's loads in flight
+//     together (one barrier covers both);
+//   - dedup, and in it the fresh vector rows, all requested before any is
+//     reduced. Mechanism: Hopper's 1-D bulk copy, cp.async.bulk.
+//     shared::cluster.global.mbarrier::complete_tx::bytes, one per row. The
+//     lane that claims fresh place f (f < R) arms the mbarrier of its ring
+//     slot with the row's bytes (mbarrier.arrive.expect_tx, arrival count
+//     1) and issues the copy at once, so every fresh row of the iteration
+//     is in flight together, and no row passes through registers. Barrier;
+//   - the rows: the fresh rows take consecutive ring positions that run on
+//     across iterations: position p is slot p % R, and its use of the slot
+//     is lap p / R. Slot s belongs to warp s % 8, which waits on the slot's
+//     mbarrier (mbarrier.try_wait.parity with the lap's parity), reduces the
+//     row from shared memory against the query row, writes the distance to
+//     fd[f], and, when the iteration has more fresh rows than slots,
+//     refills the slot with the row R places on while the other slots
+//     reduce. Phase discipline: each slot's k-th fill completes its
+//     mbarrier's phase k, and only the owner warp waits on a slot, in
+//     position order, having waited on phase k-1 before it waits on phase
+//     k; so a parity never aliases a phase two behind. Every fill is
+//     consumed in the iteration that issued it, so no copy is in flight
+//     when the block exits. A refill writes a slot its warp has just read
+//     and summed, after a __syncwarp (copy_row says why no proxy fence is
+//     needed). No integer division runs in the loop. Every row form
+//     qualifies: good_rows makes each row whole 16-byte vectors, and the
+//     wrapper requires `vectors` to start on a 16-byte boundary. Barrier;
+//   - the step's merge and frontier.
+// Adjacency rows ahead in L2: measured and left out. A prefetch.global.L2
+// of each 128-byte line of adj0[id] as soon as each fresh id was known (the
+// next frontier is a beam entry, and every beam entry but the seeds was
+// fresh once) paid for no row form: each form ran 0.6% faster to 2.6%
+// slower with it (PERF.md §6, timed in turns against the same kernel
+// without it). An adjacency row is m0 * 4 bytes, not always a multiple of
+// 16, so a bulk copy into shared memory was not the means either.
+// Ring size: the wrapper's launch plan (ops/beam.py:_loop_plan) passes R.
+// It takes the whole window when the launch's blocks still fit in the
+// waves the kernel needs without a ring (B=256 over 132 SMs needs 2 blocks
+// an SM, about 113 KB each), else the most slots that keep those waves, and
+// at least one; the launcher computes the block's bytes from R with
+// layout() and returns kSmemTooLarge when the block does not fit.
+//
+// Block barriers per iteration of the loop kernel, unmasked: 10 in the
+// design before the ring (the window read, two in dedup, three around the
+// compaction and the row reads, two in the merge, two in the frontier);
+// now 4 (after dedup, after the rows, after the merge, after the frontier
+// and its window read). Masked: 13 before, the same 4 now, because the
+// result buffer's merge runs in the beam's merge pass.
 //
 // The kernel is a template on the row form (F32Rows, Int8Rows, WordRows
 // below; ops/beam.py:_loop_form picks one from the rows' dtype and the
@@ -69,18 +124,17 @@
 // XLA, not Pallas. The beam and the frontier run exactly as in the unmasked
 // form. A second buffer of KP slots (Results, in shared memory after the
 // Step's arrays, seeded by the caller) collects the nodes that pass the
-// node mask: each iteration, before the beam's merge, the fresh window is
-// copied with every entry whose mask byte is 0 set to (+inf, -1), and the
-// same stable merge (buffer before window) keeps the KP smallest. The mask
-// is one byte a node, shared by the batch and read with __ldg: at 1M nodes
-// it is 1 MB, so it stays in the 50 MB L2. The buffer is not deduplicated
-// inside the loop (a node evicted from the beam and met again is collected
-// twice, as in the JAX package); after the loop each block keeps the first
-// occurrence of each id and writes the KP slots ranked by (distance,
-// position), the stable sort. The flag is a template parameter so that the
-// unmasked forms compile as before: under __launch_bounds__(256, 4) every
-// form is held at 64 registers, and any code the unmasked forms do not run
-// stays out of them.
+// node mask: each iteration the fresh entries whose mask byte is 1 are
+// merged into the buffer in the beam's merge pass, by the same stable merge
+// among themselves (buffer before window), keeping the KP smallest. The
+// mask is one byte a node, shared by the batch and read with __ldg while
+// the rows are in flight: at 1M nodes it is 1 MB, so it stays in the 50 MB
+// L2. The buffer is not deduplicated inside the loop (a node evicted from
+// the beam and met again is collected twice, as in the JAX package); after
+// the loop each block keeps the first occurrence of each id and writes the
+// KP slots ranked by (distance, position), the stable sort. The flag is a
+// template parameter so that the unmasked forms carry no code of the
+// masked ones.
 //
 // Why a per-block loop equals the lock-step loops of the JAX package and of
 // beam_loop_plain: those advance the whole batch until every query is
@@ -95,16 +149,16 @@
 //
 // Bound of the loop kernel: bytes. What it must move is the distinct vector
 // and adjacency rows that the batch's loop reads, each once, plus q and the
-// beams in and out. A query against W rows is a matrix-vector product, so
-// tensor cores do not serve it, and the few FLOPs per byte keep it far from
-// the float32 rate; int8 and word rows move 4x and 32x fewer bytes a row
-// for the same work (a word row is 128 B at 1024 dims, an adjacency row
-// of 32 ids also 128 B). The launch has one block per query: B=256 (search) is
-// about 2 blocks per SM of the 132, B=1024 (construction) about 8. The
-// chain of two dependent reads per iteration (adjacency, then vectors), and
-// the step's barriers, set the time of an iteration. Later work: prefetch
-// the next frontier's adjacency rows, run several queries per block, TMA
-// row loads into a shared-memory ring, and clusters.
+// beams in and out (PERF.md §6, chip_smoke.py:_loop_bound). Tensor cores do
+// not serve it: each query reads its own rows, so the work is a
+// matrix-vector product, two multiply-adds per element of a 4-byte row
+// (about 0.5 FLOP a byte; int8 and word rows 2 and ~0.75 operations a
+// byte), far below the ~295 operations a byte where a tensor core would be
+// the limit. What sets an iteration's time is its chain: frontier ->
+// adjacency rows -> dedup -> the fresh rows (one round trip, all in
+// flight) -> merge, four barriers apart; at f32 rows also the rows' own
+// traffic, since queries that read the same row each read it (chip_smoke.py
+// reports each phase's cycles; PERF.md §6 has them).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -112,10 +166,34 @@
 
 namespace {
 
+#ifdef TPUVEC_LOOP_CLOCKS
+// Built only for measurement (chip_smoke.py --against NAME=PATH,-DTPUVEC_LOOP_CLOCKS):
+// thread 0 of each block of the loop kernel adds the SM clock cycles of each
+// phase of an iteration here: its own work in a phase, then its wait at the
+// barrier after it for the rest of the block; [kPhases] counts the
+// iterations. tpuvec_loop_clocks reads and clears them. Phases: dedup (and
+// the copies' issue), its barrier; rows, barrier; merge_window, merge_beam,
+// barrier; frontier (and the window read), barrier.
+constexpr int kPhases = 9;
+__device__ unsigned long long g_loop_clocks[kPhases + 1];
+#define LOOP_CLOCK(k)                                                  \
+  do {                                                                 \
+    if (threadIdx.x == 0) {                                            \
+      const long long now = clock64();                                 \
+      clocks[k] += static_cast<unsigned long long>(now - clock_last);  \
+      clock_last = now;                                                \
+    }                                                                  \
+  } while (0)
+#else
+#define LOOP_CLOCK(k) \
+  do {                \
+  } while (0)
+#endif
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxE = 64;
-constexpr int kRowChunk = 8;  // 16-byte loads of a row in flight per lane
+constexpr unsigned kFull = 0xffffffffu;
 
 // distance forms of the loop kernel (ops/beam.py:_loop_form)
 constexpr int kSqL2 = 0;
@@ -136,116 +214,217 @@ struct Step {
   float* od;         // [EF] beam out
   int32_t* oi;       // [EF]
   uint8_t* ox;       // [EF]
-  float* wd;         // [W] window distances
   int32_t* wi;       // [W] window ids
-  float* sorted_wd;  // [W] window distances, ascending
-  int32_t* wrank;    // [W] rank of each window entry
-  int32_t* flist;    // [W] positions of the fresh window entries
-  uint32_t* words;   // [ceil(max(EF, W) / 32)] ballot words
+  int32_t* fid;      // [W] ids of the fresh entries, in the order dedup found them
+  int32_t* fj;       // [W] their window positions
+  float* fd;         // [W] their distances
   int32_t* cand;     // [E] next frontier
   int32_t* active;   // [1]
+  int32_t* nf;       // [1] fresh entries found so far this iteration
   unsigned char* qq; // [1] |q|^2, in the row form's accumulator type
-  uint8_t* fresh;    // [W]
+  uint8_t* fok;      // [W] fresh entry f passes the node mask (masked form)
 };
 
-__host__ __device__ inline unsigned char* take(unsigned char* base, size_t* off, size_t bytes) {
-  unsigned char* p = base ? base + *off : nullptr;
-  *off += bytes;
-  return p;
-}
-
-// Carves the shared memory: the query row (row_bytes, rounded up to 16) first,
-// so it and what follows stay 16-byte aligned, then the 4-byte arrays, then
-// the byte arrays. Returns the bytes needed; fills `s` and `q` when `base`
-// is not null.
-__host__ __device__ size_t layout(unsigned char* base, int ef, int w, int e,
-                                  size_t row_bytes, Step* s, unsigned char** q) {
-  const size_t n_words = ((ef > w ? ef : w) + 31) / 32;
-  size_t off = 0;
-  unsigned char* sq = take(base, &off, (row_bytes + 15) / 16 * 16);
-  Step t;
-  t.d = reinterpret_cast<float*>(take(base, &off, 4 * ef));
-  t.od = reinterpret_cast<float*>(take(base, &off, 4 * ef));
-  t.i = reinterpret_cast<int32_t*>(take(base, &off, 4 * ef));
-  t.oi = reinterpret_cast<int32_t*>(take(base, &off, 4 * ef));
-  t.wd = reinterpret_cast<float*>(take(base, &off, 4 * w));
-  t.wi = reinterpret_cast<int32_t*>(take(base, &off, 4 * w));
-  t.sorted_wd = reinterpret_cast<float*>(take(base, &off, 4 * w));
-  t.wrank = reinterpret_cast<int32_t*>(take(base, &off, 4 * w));
-  t.flist = reinterpret_cast<int32_t*>(take(base, &off, 4 * w));
-  t.words = reinterpret_cast<uint32_t*>(take(base, &off, 4 * n_words));
-  t.cand = reinterpret_cast<int32_t*>(take(base, &off, 4 * e));
-  t.active = reinterpret_cast<int32_t*>(take(base, &off, 4));
-  t.qq = take(base, &off, 4);
-  t.x = take(base, &off, ef);
-  t.ox = take(base, &off, ef);
-  t.fresh = take(base, &off, w);
-  if (base) {
-    *s = t;
-    if (q) *q = sq;
-  }
-  return off;
-}
-
-// The masked loop kernel's result buffer, carved after the Step's arrays.
+// The masked loop kernel's result buffer.
 struct Results {
   float* d;    // [KP] buffer in, ascending
   int32_t* i;  // [KP]
   float* od;   // [KP] buffer out
   int32_t* oi; // [KP]
-  float* wd;   // [W] window distances, +inf where the node fails the mask
-  int32_t* wi; // [W] window ids, -1 where the node fails the mask
 };
 
-// Carves the Results at byte `off` (rounded up to 16) of the shared
-// memory; returns the bytes needed in all, and fills `r` when `base` is not
-// null.
-__host__ __device__ size_t layout_results(unsigned char* base, size_t off, int kp, int w,
-                                          Results* r) {
-  off = (off + 15) / 16 * 16;
-  Results t;
-  t.d = reinterpret_cast<float*>(take(base, &off, 4 * kp));
-  t.od = reinterpret_cast<float*>(take(base, &off, 4 * kp));
-  t.i = reinterpret_cast<int32_t*>(take(base, &off, 4 * kp));
-  t.oi = reinterpret_cast<int32_t*>(take(base, &off, 4 * kp));
-  t.wd = reinterpret_cast<float*>(take(base, &off, 4 * w));
+__host__ __device__ inline unsigned char* take(unsigned char* base, size_t* off, size_t bytes) {
+  unsigned char* p = base ? base + *off : nullptr;
+  *off += (bytes + 15) / 16 * 16;  // every array starts on a 16-byte boundary
+  return p;
+}
+
+// Carves the shared memory, each array 16-byte aligned: the query row
+// (row_bytes), then `ring` row slots and their mbarriers, then the step's
+// arrays, then, when kp > 0 (the masked form), the mask flags and the
+// Results. Returns the bytes needed; fills the pointers when `base` is not
+// null. ops/beam.py:_loop_smem mirrors it.
+__host__ __device__ size_t layout(unsigned char* base, int ef, int w, int e, size_t row_bytes,
+                                  int ring, int kp, Step* s, unsigned char** q,
+                                  unsigned char** slots, uint64_t** bars, Results* r) {
+  size_t off = 0;
+  unsigned char* sq = take(base, &off, row_bytes);
+  unsigned char* sl = take(base, &off, row_bytes * ring);
+  uint64_t* sb = reinterpret_cast<uint64_t*>(take(base, &off, 8 * static_cast<size_t>(ring)));
+  Step t;
+  t.d = reinterpret_cast<float*>(take(base, &off, 4 * ef));
+  t.od = reinterpret_cast<float*>(take(base, &off, 4 * ef));
+  t.i = reinterpret_cast<int32_t*>(take(base, &off, 4 * ef));
+  t.oi = reinterpret_cast<int32_t*>(take(base, &off, 4 * ef));
   t.wi = reinterpret_cast<int32_t*>(take(base, &off, 4 * w));
-  if (base) *r = t;
+  t.fid = reinterpret_cast<int32_t*>(take(base, &off, 4 * w));
+  t.fj = reinterpret_cast<int32_t*>(take(base, &off, 4 * w));
+  t.fd = reinterpret_cast<float*>(take(base, &off, 4 * w));
+  t.cand = reinterpret_cast<int32_t*>(take(base, &off, 4 * e));
+  unsigned char* misc = take(base, &off, 16);  // active, nf, qq
+  t.x = take(base, &off, ef);
+  t.ox = take(base, &off, ef);
+  t.fok = nullptr;
+  Results u{};
+  if (kp > 0) {
+    t.fok = take(base, &off, w);
+    u.d = reinterpret_cast<float*>(take(base, &off, 4 * kp));
+    u.od = reinterpret_cast<float*>(take(base, &off, 4 * kp));
+    u.i = reinterpret_cast<int32_t*>(take(base, &off, 4 * kp));
+    u.oi = reinterpret_cast<int32_t*>(take(base, &off, 4 * kp));
+  }
+  if (base) {
+    t.active = reinterpret_cast<int32_t*>(misc);
+    t.nf = reinterpret_cast<int32_t*>(misc + 4);
+    t.qq = misc + 8;
+    if (s) *s = t;
+    if (q) *q = sq;
+    if (slots) *slots = sl;
+    if (bars) *bars = sb;
+    if (r) *r = u;
+  }
   return off;
 }
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 __device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
 
-// words[r / 32] bit r % 32 = flag(r), for r < n. The loop bound is the
-// same for every thread, so every lane of a warp reaches the ballot.
-template <class Flag>
-__device__ __forceinline__ void ballot_words(uint32_t* words, int n, Flag flag) {
-  for (int r0 = 0; r0 < n; r0 += blockDim.x) {
-    const int r = r0 + threadIdx.x;
-    const bool f = r < n && flag(r);
-    const uint32_t bits = __ballot_sync(0xffffffffu, f);
-    if (lane_id() == 0 && r < n) words[r >> 5] = bits;
+// log2 of the lanes G a group takes for n entries spread over the block:
+// G a power of two from 1 to 32, G * next_pow2(n) <= kThreads where it can
+// be. Groups are indexed by shifts: the loop has no integer division.
+__device__ __forceinline__ int group_log2(int n) {
+  const int lg = 8 - (n > 1 ? 32 - __clz(n - 1) : 0);  // kThreads = 1 << 8
+  return lg < 0 ? 0 : (lg > 5 ? 5 : lg);
+}
+
+// Sum of v over the g lanes of this lane's group (g a power of two).
+__device__ __forceinline__ int group_sum(int v, int g) {
+  for (int o = g >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarrier with `count` arrivals a phase (one thread)
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Copies `bytes` (a multiple of 16, both ends 16-byte aligned) from global
+// `src` to shared `dst` with one bulk copy whose completion counts on `bar`;
+// the calling thread is the phase's one arrival. No proxy fence: the only
+// generic accesses to a slot are reads, and their values have been used
+// (summed across the warp) before the __syncwarp or barrier that precedes
+// the copy, as a consumer releases a stage by an mbarrier arrive alone in
+// CUTLASS's bulk-copy pipelines.
+__device__ __forceinline__ void copy_row(void* dst, const void* src, uint32_t bytes,
+                                         uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits until the phase of `bar` with parity `parity` has completed.
+__device__ __forceinline__ void wait_row(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ bool has(const int4& x, int32_t id) {
+  return (x.x == id) | (x.y == id) | (x.z == id) | (x.w == id);
+}
+
+// Whether any of a[0..len) equals id, read by the `g` lanes of a group,
+// this lane being lane `sub` of it: whole 16-byte vectors, four loads in
+// flight at a time (`a` is 16-byte aligned), then the tail. Stops early on
+// a hit.
+__device__ __forceinline__ bool any_equal(const int32_t* a, int len, int32_t id, int sub, int g) {
+  const int4* a4 = reinterpret_cast<const int4*>(a);
+  const int full = len >> 2;
+  bool hit = false;
+  int v = sub;
+  for (; v + 3 * g < full && !hit; v += 4 * g) {
+    const int4 x0 = a4[v], x1 = a4[v + g], x2 = a4[v + 2 * g], x3 = a4[v + 3 * g];
+    hit = has(x0, id) | has(x1, id) | has(x2, id) | has(x3, id);
+  }
+  for (; v < full && !hit; v += g) hit = has(a4[v], id);
+  for (int k = 4 * full + sub; k < len && !hit; k += g) hit = a[k] == id;
+  return hit;
+}
+
+// 1. dedup of the window (s.wi) against the beam ids (s.i) and, with
+//    E > 1, the earlier window ids. Calls visit(f, j, id) on the lane that
+//    leads the group of each fresh window entry j, f its place in the
+//    fresh list (claimed from *s.nf, which must be 0 before). The caller
+//    puts a barrier after it.
+template <class Visit>
+__device__ void dedup(const Step& s, int ef, int w, int e, Visit visit) {
+  const int lg = group_log2(w);
+  const int g = 1 << lg;
+  const int lane = lane_id();
+  const int sub = lane & (g - 1);
+  // this lane's group; written without a shift by 32 or a select on g, a
+  // form the compiler gave the whole warp's mask for at g = 16
+  const uint32_t group = (kFull >> (32 - g)) << (lane & ~(g - 1));
+  for (int r0 = 0; r0 < w; r0 += kThreads >> lg) {
+    const int j = r0 + static_cast<int>(threadIdx.x >> lg);
+    const int32_t id = j < w ? s.wi[j] : -1;
+    bool hit = false;
+    if (id >= 0) {
+      hit = any_equal(s.i, ef, id, sub, g);
+      if (e > 1 && !hit) hit = any_equal(s.wi, j, id, sub, g);
+    }
+    const bool dup = (__ballot_sync(kFull, hit) & group) != 0;
+    const bool fresh = sub == 0 && id >= 0 && !dup;
+    const uint32_t bits = __ballot_sync(kFull, fresh);
+    int base = 0;
+    if (lane == 0 && bits) base = atomicAdd(s.nf, __popc(bits));
+    base = __shfl_sync(kFull, base, 0);
+    if (fresh) visit(base + __popc(bits & ((1u << lane) - 1u)), j, id);
   }
 }
 
-// Number of set bits before position r.
-__device__ __forceinline__ int bits_before(const uint32_t* words, int r) {
+// Sum of pred(h, a[h]) over this lane's share of h < n, the `g` lanes of a
+// group taking 16-byte vectors of `a` in turn (`a` is 16-byte aligned): the
+// loads are independent, so a count is one round of shared-memory latency,
+// not a chain of them as a binary search is.
+template <class Pred>
+__device__ __forceinline__ int count_where(const float* a, int n, int sub, int g, Pred pred) {
+  const float4* a4 = reinterpret_cast<const float4*>(a);
   int c = 0;
-  for (int k = 0; k < (r >> 5); ++k) c += __popc(words[k]);
-  return c + __popc(words[r >> 5] & ((1u << (r & 31)) - 1u));
-}
-
-__device__ __forceinline__ int count_less(const float* a, int n, float v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
+#pragma unroll 4
+  for (int v = sub; v < (n >> 2); v += g) {
+    const float4 x = a4[v];
+    c += pred(4 * v, x.x) + pred(4 * v + 1, x.y) + pred(4 * v + 2, x.z) + pred(4 * v + 3, x.w);
   }
-  return lo;
+  for (int h = (n & ~3) + sub; h < n; h += g) c += pred(h, a[h]);
+  return c;
 }
 
-__device__ __forceinline__ int count_less_equal(const float* a, int n, float v) {
+// #{j < n : a[j] <= v} for ascending a (16-byte aligned), on every lane of
+// a group of g lanes that hold the same v: counted in 16-byte loads while
+// that is at most four loads a lane (one round of shared-memory latency),
+// else a binary search, the same on every lane of the group.
+__device__ __forceinline__ int count_at_most(const float* a, int n, float v, int sub, int g) {
+  if (n <= 16 * g) {
+    return group_sum(count_where(a, n, sub, g, [&](int, float x) { return x <= v ? 1 : 0; }), g);
+  }
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -254,100 +433,156 @@ __device__ __forceinline__ int count_less_equal(const float* a, int n, float v) 
   return lo;
 }
 
-// 1. dedup of the window (s.wi) against the beam ids (s.i) and, with
-//    E > 1, the earlier window ids. Non-fresh entries become (+inf, -1).
-__device__ void dedup(const Step& s, int ef, int w, int e) {
-  const int lane = lane_id();
-  for (int j = warp_id(); j < w; j += kWarps) {
-    const int32_t id = s.wi[j];  // the same for the whole warp
-    bool hit = false;
-    if (id >= 0) {
-      for (int k = lane; k < ef; k += 32) hit |= s.i[k] == id;
-      if (e > 1) {
-        for (int k = lane; k < j; k += 32) hit |= s.wi[k] == id;
+// 2. the stable merge of the beam (s.d, s.i, s.x) and the n fresh entries
+//    (s.fid, s.fj, s.fd) into the EF smallest (s.od, s.oi, s.ox), in two
+//    halves that write disjoint slots (merge_window, merge_beam); +inf
+//    slots marked expanded. kMasked: the fresh entries that pass the mask
+//    (s.fok) into the result buffer (r) the same way. The caller puts a
+//    barrier after both.
+//
+//    merge_window: each fresh entry's rank among the fresh by (distance,
+//    window position) (kMasked: also among those passing the mask, in the
+//    high half), counted by the entry's group of lanes, plus #{beam j : d_j
+//    <= d_f} (kMasked: the same in the buffer) by count_at_most.
+template <bool kMasked>
+__device__ void merge_window(const Step& s, const Results& r, int ef, int kp, int n) {
+  const int lg = group_log2(n);
+  const int g = 1 << lg;
+  const int sub = lane_id() & (g - 1);
+  for (int r0 = 0; r0 < n; r0 += kThreads >> lg) {
+    const int f = r0 + static_cast<int>(threadIdx.x >> lg);
+    const float df = f < n ? s.fd[f] : 0.f;
+    const int jf = f < n ? s.fj[f] : 0;
+    int less = 0;
+    if (f < n) {  // branch-free: the positions (and mask flags) load beside the distances
+      const int4* j4 = reinterpret_cast<const int4*>(s.fj);
+      [[maybe_unused]] const uint32_t* ok4 = reinterpret_cast<const uint32_t*>(s.fok);
+      less = count_where(s.fd, n, sub, g, [&](int h, float dh) {
+        const int4 jv = j4[h >> 2];
+        const int jh = (h & 3) == 0 ? jv.x : (h & 3) == 1 ? jv.y : (h & 3) == 2 ? jv.z : jv.w;
+        const int before = (dh < df) | ((dh == df) & (jh < jf));
+        if constexpr (kMasked) {
+          const int ok = static_cast<int>((ok4[h >> 2] >> (8 * (h & 3))) & 1u);
+          return before + ((before & ok) << 16);
+        }
+        return before;
+      });
+    }
+    less = group_sum(less, g);
+    // the beam's (and kMasked: the buffer's) entries at or below d_f; the
+    // same on the group's lanes, and ignored where f >= n
+    const int below = count_at_most(s.d, ef, df, sub, g);
+    [[maybe_unused]] const int below_r = kMasked ? count_at_most(r.d, kp, df, sub, g) : 0;
+    if (f < n && sub == 0) {
+      const int slot = (less & 0xffff) + below;
+      if (slot < ef) {
+        s.od[slot] = df;
+        s.oi[slot] = s.fid[f];
+        s.ox[slot] = isfinite(df) ? 0 : 1;
       }
-    }
-    hit = __any_sync(0xffffffffu, hit);
-    if (lane == 0) s.fresh[j] = (id >= 0 && !hit) ? 1 : 0;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < w; j += blockDim.x) {
-    if (!s.fresh[j]) {
-      s.wd[j] = INFINITY;
-      s.wi[j] = -1;
-    }
-  }
-  __syncthreads();
-}
-
-// 2. stable merge of the beam (s.d, s.i, s.x) and the window (s.wd, s.wi)
-//    into the EF smallest (s.od, s.oi, s.ox); +inf slots marked expanded.
-//    kFlags false: the expanded flags are neither read nor written (the
-//    masked form's result buffer, which has none).
-template <bool kFlags = true>
-__device__ void merge(const Step& s, int ef, int w) {
-  for (int j = threadIdx.x; j < w; j += blockDim.x) {
-    const float dj = s.wd[j];
-    int r = 0;
-    for (int k = 0; k < w; ++k) {
-      const float dk = s.wd[k];
-      r += (dk < dj) || (dk == dj && k < j);
-    }
-    s.wrank[j] = r;
-    s.sorted_wd[r] = dj;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < ef; j += blockDim.x) {
-    const float dj = s.d[j];
-    const int slot = j + count_less(s.sorted_wd, w, dj);
-    if (slot < ef) {
-      s.od[slot] = dj;
-      s.oi[slot] = s.i[j];
-      if constexpr (kFlags) s.ox[slot] = (s.x[j] || !isfinite(dj)) ? 1 : 0;
-    }
-  }
-  for (int j = threadIdx.x; j < w; j += blockDim.x) {
-    const float dj = s.wd[j];
-    const int slot = s.wrank[j] + count_less_equal(s.d, ef, dj);
-    if (slot < ef) {
-      s.od[slot] = dj;
-      s.oi[slot] = s.wi[j];
-      if constexpr (kFlags) s.ox[slot] = isfinite(dj) ? 0 : 1;
-    }
-  }
-  __syncthreads();
-}
-
-// 3. the next frontier of the merged beam: the first E unexpanded slots,
-//    selected (and marked expanded) only when the query is active.
-__device__ void frontier(const Step& s, int ef, int e) {
-  ballot_words(s.words, ef, [&](int r) { return !s.ox[r] && isfinite(s.od[r]); });
-  __syncthreads();
-  const int n_words = (ef + 31) >> 5;
-  int first = -1, total = 0;
-  for (int k = 0; k < n_words; ++k) {
-    const uint32_t bits = s.words[k];
-    if (first < 0 && bits) first = k * 32 + __ffs(bits) - 1;
-    total += __popc(bits);
-  }
-  const float best = first >= 0 ? s.od[first] : INFINITY;
-  const float worst = s.od[ef - 1];
-  const bool act = isfinite(best) && (best <= worst || !isfinite(worst));
-  if (act) {
-    for (int r = threadIdx.x; r < ef; r += blockDim.x) {
-      if ((s.words[r >> 5] >> (r & 31)) & 1u) {
-        const int k = bits_before(s.words, r);
-        if (k < e) {
-          s.cand[k] = s.oi[r];
-          s.ox[r] = 1;
+      if constexpr (kMasked) {
+        const int rslot = (less >> 16) + below_r;
+        if (s.fok[f] && rslot < kp) {
+          r.od[rslot] = df;
+          r.oi[rslot] = s.fid[f];
         }
       }
     }
   }
-  const int n_sel = act ? (total < e ? total : e) : 0;
-  for (int k = n_sel + threadIdx.x; k < e; k += blockDim.x) s.cand[k] = -1;
-  if (threadIdx.x == 0) *s.active = act ? 1 : 0;
-  __syncthreads();
+}
+
+//    merge_beam: each beam entry j moves up by the fresh entries below it
+//    (kMasked: each result buffer entry by those that pass the mask).
+template <bool kMasked>
+__device__ void merge_beam(const Step& s, const Results& r, int ef, int kp, int n) {
+  const int lane = lane_id();
+  {
+    const int lg = group_log2(ef);
+    const int g = 1 << lg;
+    const int sub = lane & (g - 1);
+    for (int r0 = 0; r0 < ef; r0 += kThreads >> lg) {
+      const int j = r0 + static_cast<int>(threadIdx.x >> lg);
+      const float dj = j < ef ? s.d[j] : 0.f;
+      int shift = j < ef ? count_where(s.fd, n, sub, g, [&](int, float dh) { return dh < dj; }) : 0;
+      shift = group_sum(shift, g);
+      if (j < ef && sub == 0 && j + shift < ef) {
+        s.od[j + shift] = dj;
+        s.oi[j + shift] = s.i[j];
+        s.ox[j + shift] = (s.x[j] || !isfinite(dj)) ? 1 : 0;
+      }
+    }
+  }
+  if constexpr (kMasked) {
+    const int lg = group_log2(kp);
+    const int g = 1 << lg;
+    const int sub = lane & (g - 1);
+    for (int r0 = 0; r0 < kp; r0 += kThreads >> lg) {
+      const int j = r0 + static_cast<int>(threadIdx.x >> lg);
+      const float dj = j < kp ? r.d[j] : 0.f;
+      int shift = j < kp ? count_where(s.fd, n, sub, g,
+                                       [&](int h, float dh) { return (dh < dj) & s.fok[h]; })
+                         : 0;
+      shift = group_sum(shift, g);
+      if (j < kp && sub == 0 && j + shift < kp) {
+        r.od[j + shift] = dj;
+        r.oi[j + shift] = r.i[j];
+      }
+    }
+  }
+}
+
+// 3. the next frontier of the merged beam (s.od, s.oi, s.ox), by warp 0
+//    alone: the first E unexpanded finite slots, selected (and marked
+//    expanded) only when the query is active. Returns `active` on every lane.
+__device__ bool frontier(const Step& s, int ef, int e) {
+  const int lane = lane_id();
+  const float worst = s.od[ef - 1];
+  bool act = false;
+  int before = 0;  // unexpanded finite slots in the words scanned
+  for (int r0 = 0; r0 < ef && before < e; r0 += 32) {
+    const int r = r0 + lane;
+    const bool open = r < ef && !s.ox[r] && isfinite(s.od[r]);
+    const uint32_t bits = __ballot_sync(kFull, open);
+    if (before == 0 && bits) {  // the best unexpanded slot decides `active`
+      const float best = s.od[r0 + __ffs(bits) - 1];
+      act = best <= worst || !isfinite(worst);
+      if (!act) break;
+    }
+    if (open) {
+      const int k = before + __popc(bits & ((1u << lane) - 1u));
+      if (k < e) {
+        s.cand[k] = s.oi[r];
+        s.ox[r] = 1;
+      }
+    }
+    before += __popc(bits);
+  }
+  const int n_sel = act ? (before < e ? before : e) : 0;
+  for (int k = n_sel + lane; k < e; k += 32) s.cand[k] = -1;
+  if (lane == 0) *s.active = act ? 1 : 0;
+  return act;
+}
+
+// The frontier's adjacency rows into the window, by one warp (after
+// frontier): ids < 0 give -1; four loads a lane in flight at a time.
+// m0_inv = ceil(2^32 / m0): j / m0 = (j * m0_inv) >> 32, exact for j and
+// m0 below 2^16 (W < 2048), so no integer division in the loop.
+__device__ void load_window(const Step& s, const int32_t* __restrict__ adj0, int m0,
+                            uint64_t m0_inv, int w) {
+  for (int j0 = lane_id(); j0 < w; j0 += 4 * 32) {
+    int32_t v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + 32 * u;
+      const int k = static_cast<int>((static_cast<uint64_t>(j) * m0_inv) >> 32);
+      const int32_t c = j < w ? s.cand[k] : -1;
+      v[u] = c >= 0 ? __ldg(adj0 + static_cast<size_t>(c) * m0 + (j - k * m0)) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (j0 + 32 * u < w) s.wi[j0 + 32 * u] = v[u];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -364,7 +599,8 @@ beam_update_kernel(const float* __restrict__ beam_d,
                    int ef, int w, int e) {
   extern __shared__ __align__(16) unsigned char smem[];
   Step s;
-  layout(smem, ef, w, e, 0, &s, nullptr);
+  Results none{};
+  layout(smem, ef, w, e, 0, 0, 0, &s, nullptr, nullptr, nullptr, nullptr);
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
   const size_t ob = static_cast<size_t>(q) * ef;
@@ -375,15 +611,21 @@ beam_update_kernel(const float* __restrict__ beam_d,
     s.i[j] = beam_i[ob + j];
     s.x[j] = beam_x[ob + j] ? 1 : 0;
   }
-  for (int j = tid; j < w; j += blockDim.x) {
-    s.wi[j] = nbrs[ow + j];
-    s.wd[j] = nd[ow + j];
-  }
+  for (int j = tid; j < w; j += blockDim.x) s.wi[j] = nbrs[ow + j];
+  if (tid == 0) *s.nf = 0;
   __syncthreads();
 
-  dedup(s, ef, w, e);
-  merge(s, ef, w);
-  frontier(s, ef, e);
+  dedup(s, ef, w, e, [&](int f, int j, int32_t id) {
+    s.fid[f] = id;
+    s.fj[f] = j;
+    s.fd[f] = nd[ow + j];
+  });
+  __syncthreads();
+  merge_window<false>(s, none, ef, 0, *s.nf);
+  merge_beam<false>(s, none, ef, 0, *s.nf);
+  __syncthreads();
+  if (warp_id() == 0) frontier(s, ef, e);
+  __syncthreads();
 
   for (int j = tid; j < ef; j += blockDim.x) {
     out_d[ob + j] = s.od[j];
@@ -397,7 +639,7 @@ beam_update_kernel(const float* __restrict__ beam_d,
 template <class T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
@@ -484,45 +726,41 @@ struct WordRows {
   __device__ static Acc norm_part(const Elem*, int, int) { return 0; }
 };
 
-// Internal distance of the query row (shared memory) to one vector row in
-// device memory, by one warp; every lane gets the result.
+// Internal distance of the query row to one row, both in shared memory, by
+// one warp; every lane gets the result.
 template <class R>
-__device__ __forceinline__ float row_distance(const typename R::Elem* __restrict__ sq,
-                                              const typename R::Elem* __restrict__ row,
-                                              int dp, int metric, typename R::Acc qq) {
-  using Vec = typename R::Vec;
+__device__ __forceinline__ float row_distance(const typename R::Vec* qv,
+                                              const typename R::Vec* rv, int nv, int metric,
+                                              typename R::Acc qq) {
   using Acc = typename R::Acc;
-  const int lane = lane_id();
-  const int nv = dp / R::kPerVec;
-  const Vec* rv = reinterpret_cast<const Vec*>(row);
-  const Vec* qv = reinterpret_cast<const Vec*>(sq);
   Acc a = 0, b = 0;
-  for (int c0 = lane; c0 < nv; c0 += 32 * kRowChunk) {
-    Vec v[kRowChunk];
-#pragma unroll
-    for (int u = 0; u < kRowChunk; ++u) {
-      const int c = c0 + 32 * u;
-      v[u] = c < nv ? __ldg(rv + c) : Vec{};
-    }
-#pragma unroll
-    for (int u = 0; u < kRowChunk; ++u) {
-      const int c = c0 + 32 * u;
-      if (c < nv) R::add(metric, qv[c], v[u], a, b);
-    }
-  }
+  for (int c = lane_id(); c < nv; c += 32) R::add(metric, qv[c], rv[c], a, b);
   a = warp_sum(a);
   if (metric != kL1 && metric != kHamming) b = warp_sum(b);
   return R::finish(metric, a, b, qq);
 }
 
-// At most 64 registers a thread, so 4 blocks fit an SM: the construction
-// shape (B=1024, ~8 blocks per SM) then runs in fewer waves. Left to
-// itself ptxas gives each row form ~80 registers and 3 blocks an SM, which
-// is slower there (chip_smoke.py phase 3b; PERF.md has the times).
-// Unmasked (kMasked false): node_mask, res_d and res_i are unused and
-// out_d / out_i receive the beam [B, EF]. Masked: res_d / res_i are the
-// seeded result buffers [B, KP] and out_d / out_i receive the final
-// results [B, KP].
+// Moves ring position (f, slot, lap parity) forward to the first position
+// at or after it whose slot belongs to `warp` (slot % kWarps == warp; the
+// caller makes sure warp < ring).
+__device__ __forceinline__ void next_owned(int& f, int& slot, uint32_t& par, int warp, int ring) {
+  const int skip = (warp - slot) & (kWarps - 1);
+  if (slot + skip < ring) {
+    f += skip;
+    slot += skip;
+  } else {  // the next owned slot is `warp` itself, one lap on
+    f += ring - slot + warp;
+    slot = warp;
+    par ^= 1u;
+  }
+}
+
+// At most 64 registers a thread, so 4 blocks fit an SM where the shared
+// memory allows (ops/beam.py:_loop_plan counts on it). Unmasked (kMasked
+// false): node_mask, res_d and res_i are unused and out_d / out_i receive
+// the beam [B, EF]. Masked: res_d / res_i are the seeded result buffers
+// [B, KP] and out_d / out_i receive the final results [B, KP]. `ring` is
+// the number of row slots, 1..W.
 template <class R, bool kMasked>
 __global__ void __launch_bounds__(kThreads, 4)
 beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
@@ -539,17 +777,22 @@ beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
                           float* __restrict__ out_d,
                           int32_t* __restrict__ out_i,
                           int32_t* __restrict__ iters,
-                          int ef, int m0, int e, int dp, int metric, int max_iters, int kp) {
+                          int ef, int m0, int e, int dp, int metric, int max_iters, int kp,
+                          int ring) {
   using Elem = typename R::Elem;
   using Vec = typename R::Vec;
   using Acc = typename R::Acc;
   extern __shared__ __align__(16) unsigned char smem[];
   const int w = e * m0;
+  const uint64_t m0_inv = ((uint64_t{1} << 32) + m0 - 1) / m0;
+  const uint32_t row_bytes = sizeof(Elem) * dp;
+  const int nv = dp / R::kPerVec;
   Step s;
-  unsigned char* qrow;
-  [[maybe_unused]] const size_t step_bytes = layout(smem, ef, w, e, sizeof(Elem) * dp, &s, &qrow);
-  [[maybe_unused]] Results r;
-  Elem* sq = reinterpret_cast<Elem*>(qrow);
+  Results r{};
+  unsigned char *qrow, *slots;
+  uint64_t* bars;
+  layout(smem, ef, w, e, row_bytes, ring, kMasked ? kp : 0, &s, &qrow, &slots, &bars, &r);
+  const Vec* qv = reinterpret_cast<const Vec*>(qrow);
   const int qb = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = lane_id();
@@ -557,16 +800,20 @@ beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
   const size_t ob = static_cast<size_t>(qb) * ef;
 
   const Vec* qg = reinterpret_cast<const Vec*>(q + static_cast<size_t>(qb) * dp);
-  for (int c = tid; c < dp / R::kPerVec; c += blockDim.x) reinterpret_cast<Vec*>(sq)[c] = qg[c];
+  for (int c = tid; c < nv; c += blockDim.x) reinterpret_cast<Vec*>(qrow)[c] = qg[c];
   for (int j = tid; j < ef; j += blockDim.x) {
     s.d[j] = beam_d[ob + j];
     s.i[j] = beam_i[ob + j];
     s.x[j] = beam_x[ob + j] ? 1 : 0;
   }
   for (int k = tid; k < e; k += blockDim.x) s.cand[k] = cand[static_cast<size_t>(qb) * e + k];
-  if (tid == 0) *s.active = active[qb] ? 1 : 0;
+  if (tid == 0) {
+    *s.active = active[qb] ? 1 : 0;
+    *s.nf = 0;
+    for (int k = 0; k < ring; ++k) bar_init(bars + k, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   if constexpr (kMasked) {
-    layout_results(smem, step_bytes, kp, w, &r);
     const size_t orr = static_cast<size_t>(qb) * kp;
     for (int j = tid; j < kp; j += blockDim.x) {
       r.d[j] = res_d[orr + j];
@@ -574,65 +821,103 @@ beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
     }
   }
   __syncthreads();
+  // warp 0: |q|^2 and the first window
   if (warp == 0) {
-    const Acc acc = warp_sum(R::norm_part(sq, dp, lane));
+    const Acc acc = warp_sum(R::norm_part(reinterpret_cast<const Elem*>(qrow), dp, lane));
     if (lane == 0) *reinterpret_cast<Acc*>(s.qq) = acc;
+    if (*s.active) load_window(s, adj0, m0, m0_inv, w);
   }
   __syncthreads();
   const Acc qq = *reinterpret_cast<const Acc*>(s.qq);
 
+  int head = 0;       // ring slot of the next fresh row
+  uint32_t lap = 0;   // parity of that slot's lap
   int it = 0;
+#ifdef TPUVEC_LOOP_CLOCKS
+  unsigned long long clocks[kPhases] = {};
+  long long clock_last = clock64();
+#endif
   while (it < max_iters && *s.active) {
-    // the frontier's adjacency rows -> window ids
-    for (int j = tid; j < w; j += blockDim.x) {
-      const int32_t c = s.cand[j / m0];
-      s.wi[j] = c >= 0 ? __ldg(adj0 + static_cast<size_t>(c) * m0 + j % m0) : -1;
-    }
-    __syncthreads();
-    dedup(s, ef, w, e);
-
-    // compact the fresh entries, then their distances, a row per warp
-    ballot_words(s.words, w, [&](int j) { return s.fresh[j] != 0; });
-    __syncthreads();
-    int n_fresh = 0;
-    for (int k = 0; k < (w + 31) >> 5; ++k) n_fresh += __popc(s.words[k]);
-    for (int j = tid; j < w; j += blockDim.x) {
-      if (s.fresh[j]) s.flist[bits_before(s.words, j)] = j;
-    }
-    __syncthreads();
-    for (int f = warp; f < n_fresh; f += kWarps) {
-      const int j = s.flist[f];
-      const Elem* row = vectors + static_cast<size_t>(s.wi[j]) * dp;
-      const float dist = row_distance<R>(sq, row, dp, metric, qq);
-      if (lane == 0) s.wd[j] = dist;
-    }
-    __syncthreads();
-
-    if constexpr (kMasked) {
-      // the fresh window with the nodes failing the mask at (+inf, -1),
-      // merged into the result buffer by the beam's stable merge (which
-      // shares the window scratch sorted_wd / wrank with the beam's)
-      for (int j = tid; j < w; j += blockDim.x) {
-        const int32_t id = s.wi[j];
-        const bool allow = id >= 0 && __ldg(node_mask + id) != 0;
-        r.wd[j] = allow ? s.wd[j] : INFINITY;
-        r.wi[j] = allow ? id : -1;
+    // dedup; each fresh row's copy starts as soon as its place is claimed
+    dedup(s, ef, w, e, [&](int f, int j, int32_t id) {
+      s.fid[f] = id;
+      s.fj[f] = j;
+      if (f < ring) {
+        const int slot = head + f < ring ? head + f : head + f - ring;
+        copy_row(slots + static_cast<size_t>(slot) * row_bytes,
+                 vectors + static_cast<size_t>(id) * dp, row_bytes, bars + slot);
       }
-      __syncthreads();
-      Step rs = s;
-      rs.d = r.d; rs.i = r.i; rs.x = nullptr;
-      rs.od = r.od; rs.oi = r.oi; rs.ox = nullptr;
-      rs.wd = r.wd; rs.wi = r.wi;
-      merge<false>(rs, kp, w);
-      float* rd = r.d; r.d = r.od; r.od = rd;
-      int32_t* ri = r.i; r.i = r.oi; r.oi = ri;
+    });
+    LOOP_CLOCK(0);
+    __syncthreads();
+    LOOP_CLOCK(1);
+    const int n = *s.nf;
+    if constexpr (kMasked) {  // while the rows are in flight
+      for (int f = tid; f < n; f += blockDim.x) s.fok[f] = __ldg(node_mask + s.fid[f]) != 0;
     }
 
-    merge(s, ef, w);
-    frontier(s, ef, e);
+    // each warp reduces the rows of its slots, in ring order
+    if (warp < ring) {
+      int f = 0, slot = head;
+      uint32_t par = lap;
+      next_owned(f, slot, par, warp, ring);
+      while (f < n) {
+        const unsigned char* row = slots + static_cast<size_t>(slot) * row_bytes;
+        wait_row(bars + slot, par);
+        const float dist = row_distance<R>(qv, reinterpret_cast<const Vec*>(row), nv, metric, qq);
+        if (lane == 0) s.fd[f] = dist;
+        if (f + ring < n) {  // this slot's next row
+          __syncwarp();
+          if (lane == 0) {
+            copy_row(slots + static_cast<size_t>(slot) * row_bytes,
+                     vectors + static_cast<size_t>(s.fid[f + ring]) * dp, row_bytes,
+                     bars + slot);
+          }
+        }
+        ++f;
+        if (++slot == ring) {
+          slot = 0;
+          par ^= 1u;
+        }
+        next_owned(f, slot, par, warp, ring);
+      }
+    }
+    LOOP_CLOCK(2);
+    __syncthreads();
+    LOOP_CLOCK(3);
+    if (n >= ring) {  // whole laps (rare: the plan sizes the ring for the window)
+      lap ^= static_cast<uint32_t>((n / ring) & 1);
+      head += n % ring;
+    } else {
+      head += n;
+    }
+    if (head >= ring) {
+      head -= ring;
+      lap ^= 1u;
+    }
+    if (tid == 0) *s.nf = 0;  // every thread has read n
+
+    merge_window<kMasked>(s, r, ef, kp, n);
+    LOOP_CLOCK(4);
+    merge_beam<kMasked>(s, r, ef, kp, n);
+    LOOP_CLOCK(5);
+    __syncthreads();
+    LOOP_CLOCK(6);
+    // warp 0: the next frontier, then its adjacency rows into the window
+    if (warp == 0 && frontier(s, ef, e)) {
+      __syncwarp();
+      load_window(s, adj0, m0, m0_inv, w);
+    }
+    LOOP_CLOCK(7);
+    __syncthreads();
+    LOOP_CLOCK(8);
     float* td = s.d; s.d = s.od; s.od = td;
     int32_t* ti = s.i; s.i = s.oi; s.oi = ti;
     uint8_t* tx = s.x; s.x = s.ox; s.ox = tx;
+    if constexpr (kMasked) {
+      float* rd = r.d; r.d = r.od; r.od = rd;
+      int32_t* ri = r.i; r.i = r.oi; r.oi = ri;
+    }
     ++it;
   }
 
@@ -667,6 +952,12 @@ beam_search_level0_kernel(const typename R::Elem* __restrict__ q,
     }
   }
   if (tid == 0) iters[qb] = it;
+#ifdef TPUVEC_LOOP_CLOCKS
+  if (tid == 0) {
+    for (int k = 0; k < kPhases; ++k) atomicAdd(&g_loop_clocks[k], clocks[k]);
+    atomicAdd(&g_loop_clocks[kPhases], static_cast<unsigned long long>(it));
+  }
+#endif
 }
 
 bool bad_beam_shape(int b, int ef, int w, int e) {
@@ -694,6 +985,13 @@ int allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
+// Shared memory of one block of the loop kernel.
+size_t level0_smem(int rows, bool masked, int ef, int m0, int e, int dp, int kp, int ring) {
+  const size_t elem = rows == kRowsInt8 ? 1 : 4;
+  return layout(nullptr, ef, e * m0, e, elem * dp, ring, masked ? kp : 0, nullptr, nullptr,
+                nullptr, nullptr, nullptr);
+}
+
 // Launches the loop kernel of row form R, masked or not; see
 // tpuvec_beam_search_level0.
 template <class R, bool kMasked>
@@ -701,10 +999,9 @@ int launch_level0(const void* q, const void* vectors, const void* adj0, const vo
                   const void* beam_i, const void* beam_x, const void* cand, const void* active,
                   const void* node_mask, const void* res_d, const void* res_i,
                   void* out_d, void* out_i, void* iters, int b, int ef, int m0, int e, int dp,
-                  int metric, int max_iters, int kp, cudaStream_t stream) {
+                  int metric, int max_iters, int kp, int ring, size_t smem,
+                  cudaStream_t stream) {
   using Elem = typename R::Elem;
-  size_t smem = layout(nullptr, ef, e * m0, e, sizeof(Elem) * dp, nullptr, nullptr);
-  if (kMasked) smem = layout_results(nullptr, smem, kp, e * m0, nullptr);
   if (const int rc = allow_smem(beam_search_level0_kernel<R, kMasked>, smem)) return rc;
   beam_search_level0_kernel<R, kMasked><<<b, kThreads, smem, stream>>>(
       static_cast<const Elem*>(q), static_cast<const Elem*>(vectors),
@@ -714,20 +1011,40 @@ int launch_level0(const void* q, const void* vectors, const void* adj0, const vo
       static_cast<const uint8_t*>(node_mask), static_cast<const float*>(res_d),
       static_cast<const int32_t*>(res_i), static_cast<float*>(out_d),
       static_cast<int32_t*>(out_i), static_cast<int32_t*>(iters), ef, m0, e, dp, metric,
-      max_iters, kp);
+      max_iters, kp, ring);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of the loop kernel of row form R an SM holds with `smem` bytes of
+// shared memory, or kSmemTooLarge, or minus a CUDA error.
+template <class R, bool kMasked>
+int occupancy_level0(size_t smem) {
+  if (const int rc = allow_smem(beam_search_level0_kernel<R, kMasked>, smem)) {
+    return rc == kSmemTooLarge ? rc : -rc;
+  }
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, beam_search_level0_kernel<R, kMasked>, kThreads, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 using LaunchLevel0 = decltype(&launch_level0<F32Rows, false>);
+using OccupancyLevel0 = decltype(&occupancy_level0<F32Rows, false>);
 
 template <class R>
 LaunchLevel0 pick_level0(bool masked) {
   return masked ? launch_level0<R, true> : launch_level0<R, false>;
 }
 
+template <class R>
+OccupancyLevel0 pick_occupancy(bool masked) {
+  return masked ? occupancy_level0<R, true> : occupancy_level0<R, false>;
+}
+
 // Whether the loop kernel takes rows of form `rows` and `dp` elements with
-// distance form `metric`: a row must be whole 16-byte loads, and Hamming
-// runs on words only, every other form on f32 or int8 rows.
+// distance form `metric`: a row must be whole 16-byte vectors (the bulk
+// copy's unit), and Hamming runs on words only, every other form on f32 or
+// int8 rows.
 bool good_rows(int rows, int dp, int metric) {
   switch (rows) {
     case kRowsF32: return dp >= 4 && dp % 4 == 0 && metric >= kSqL2 && metric <= kCosine;
@@ -750,7 +1067,8 @@ int tpuvec_beam_update(const void* beam_d, const void* beam_i,
                        void* stream) {
   if (bad_beam_shape(b, ef, w, e)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
-  const size_t smem = layout(nullptr, ef, w, e, 0, nullptr, nullptr);
+  const size_t smem = layout(nullptr, ef, w, e, 0, 0, 0, nullptr, nullptr, nullptr, nullptr,
+                             nullptr);
   if (const int rc = allow_smem(beam_update_kernel, smem)) return rc;
   beam_update_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(beam_d), static_cast<const int32_t*>(beam_i),
@@ -762,9 +1080,10 @@ int tpuvec_beam_update(const void* beam_d, const void* beam_i,
 }
 
 // The whole level-0 loop for b queries, one block each, on rows of form
-// `rows` (kRowsF32 / kRowsInt8 / kRowsWords) with distance form `metric`.
-// With node_mask null, out_d / out_i [b, ef] receive the beam and res_d,
-// res_i and kp are unused. With node_mask ([cap] bytes, 1 = the node may be
+// `rows` (kRowsF32 / kRowsInt8 / kRowsWords) with distance form `metric`,
+// with `ring` row slots (1..W, W = e * m0; ops/beam.py:_loop_plan). With
+// node_mask null, out_d / out_i [b, ef] receive the beam and res_d, res_i
+// and kp are unused. With node_mask ([cap] bytes, 1 = the node may be
 // returned), res_d / res_i are the seeded result buffers [b, kp] and
 // out_d / out_i [b, kp] receive the results (the masked form). Launches on
 // `stream` and returns cudaGetLastError(), or kSmemTooLarge.
@@ -774,20 +1093,52 @@ int tpuvec_beam_search_level0(const void* q, const void* vectors, const void* ad
                               const void* res_d, const void* res_i,
                               void* out_d, void* out_i, void* iters,
                               int b, int ef, int m0, int e, int dp, int rows, int metric,
-                              int max_iters, int kp, void* stream) {
+                              int max_iters, int kp, int ring, void* stream) {
   const bool masked = node_mask != nullptr;
   if (bad_beam_shape(b, ef, e * m0, e) || m0 < 1 || max_iters < 0 ||
-      !good_rows(rows, dp, metric) || (masked && (kp < 1 || !res_d || !res_i))) {
+      !good_rows(rows, dp, metric) || (masked && (kp < 1 || !res_d || !res_i)) || ring < 1 ||
+      ring > e * m0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0) return 0;
+  const size_t smem = level0_smem(rows, masked, ef, m0, e, dp, kp, ring);
   const LaunchLevel0 launch = rows == kRowsF32    ? pick_level0<F32Rows>(masked)
                               : rows == kRowsInt8 ? pick_level0<Int8Rows>(masked)
                                                   : pick_level0<WordRows>(masked);
   return launch(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, node_mask, res_d,
-                res_i, out_d, out_i, iters, b, ef, m0, e, dp, metric, max_iters, kp,
+                res_i, out_d, out_i, iters, b, ef, m0, e, dp, metric, max_iters, kp, ring, smem,
                 static_cast<cudaStream_t>(stream));
 }
+
+// For a launch plan's check: writes the shared memory one block of the
+// loop kernel takes at this shape to *smem_out (an int64) and returns how
+// many blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or kSmemTooLarge, or minus a CUDA error.
+int tpuvec_level0_occupancy(int rows, int masked, int ef, int m0, int e, int dp, int kp,
+                            int ring, void* smem_out) {
+  if (rows < kRowsF32 || rows > kRowsWords || ring < 1 || e < 1 || m0 < 1 || ef < 1) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = level0_smem(rows, masked != 0, ef, m0, e, dp, kp, ring);
+  *static_cast<int64_t*>(smem_out) = static_cast<int64_t>(smem);
+  const OccupancyLevel0 occ = rows == kRowsF32    ? pick_occupancy<F32Rows>(masked != 0)
+                              : rows == kRowsInt8 ? pick_occupancy<Int8Rows>(masked != 0)
+                                                  : pick_occupancy<WordRows>(masked != 0);
+  return occ(smem);
+}
+
+#ifdef TPUVEC_LOOP_CLOCKS
+// Copies the loop kernel's phase clocks (kPhases + 1 uint64: cycles of each
+// phase summed over the blocks, then iterations) to `out` and clears them.
+int tpuvec_loop_clocks(void* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_loop_clocks, sizeof(g_loop_clocks));
+  if (err == cudaSuccess) {
+    const unsigned long long zero[kPhases + 1] = {};
+    err = cudaMemcpyToSymbol(g_loop_clocks, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+#endif
 
 const char* tpuvec_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

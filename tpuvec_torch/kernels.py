@@ -34,7 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "beam_update": {
         "tpuvec_beam_update": ([_P] * 10 + [_I] * 4 + [_P], _I),
-        "tpuvec_beam_search_level0": ([_P] * 14 + [_I] * 9 + [_P], _I),
+        "tpuvec_beam_search_level0": ([_P] * 14 + [_I] * 10 + [_P], _I),
+        "tpuvec_level0_occupancy": ([_I] * 8 + [_P], _I),
         "tpuvec_cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }

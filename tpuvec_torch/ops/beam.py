@@ -262,6 +262,77 @@ def beam_loop_plain(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active,
 _ROWS = {torch.float32: ("f32", 4, 0), torch.int8: ("int8", 16, 1), torch.int32: ("words", 4, 2)}
 
 
+# Bytes of one element of each row form (a load is 16 bytes).
+_ELEM_BYTES = {name: 16 // per_load for name, per_load, _ in _ROWS.values()}
+
+# The H100 limits the loop kernel's launch plan is made for: SMs, the
+# shared memory a block may opt in to (227 KB) and an SM holds (228 KB),
+# the shared memory the card reserves for each block, and the blocks an SM
+# runs at the kernel's 64 registers a thread (__launch_bounds__(256, 4) in
+# csrc/beam_update.cu).
+_SMS = 132
+_SMEM_PER_BLOCK = 232_448
+_SMEM_PER_SM = 233_472
+_SMEM_RESERVED = 1_024
+_BLOCKS_BY_REGISTERS = 4
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _loop_smem(row_bytes: int, ef: int, w: int, e: int, ring: int, kp: int) -> int:
+    """Shared memory of one block of the loop kernel, array for array as
+    csrc/beam_update.cu:layout carves it (each array 16-byte aligned); kp
+    is 0 for the unmasked forms."""
+    sizes = [row_bytes, row_bytes * ring, 8 * ring,  # query row, ring slots, their mbarriers
+             4 * ef, 4 * ef, 4 * ef, 4 * ef,  # beam in / out: distances, ids
+             4 * w, 4 * w, 4 * w, 4 * w,  # window ids; fresh ids, positions, distances
+             4 * e, 16, ef, ef]  # frontier, scalars, expanded flags in / out
+    if kp:
+        sizes += [w, 4 * kp, 4 * kp, 4 * kp, 4 * kp]  # mask flags, result buffer
+    return sum(_round16(x) for x in sizes)
+
+
+def _blocks_per_sm(smem: int) -> int:
+    return min(_BLOCKS_BY_REGISTERS, _SMEM_PER_SM // (smem + _SMEM_RESERVED))
+
+
+def _loop_plan(form: str, b: int, ef: int, w: int, e: int, dp: int, kp: int = 0):
+    """Launch plan of the loop kernel for B queries of form ``form`` ("f32",
+    "int8", "words", each optionally "+mask"): (ring_slots, smem_bytes,
+    blocks_per_sm, waves).
+
+    The ring of row slots takes the whole window (W slots) when the
+    launch's blocks still fit in the waves the kernel needs without a ring;
+    else the most slots that keep those waves; and at least one. Raises
+    ValueError when a block with one slot needs more shared memory than the
+    card gives."""
+    row, masked = form.removesuffix("+mask"), form.endswith("+mask")
+    row_bytes = dp * _ELEM_BYTES[row]
+    kp = kp if masked else 0
+
+    def smem(ring):
+        return _loop_smem(row_bytes, ef, w, e, ring, kp)
+
+    def waves(bps):
+        return -(-max(b, 1) // (_SMS * bps))
+
+    if smem(1) > _SMEM_PER_BLOCK:
+        raise ValueError(
+            f"beam_loop: a block needs more shared memory than the card gives ({smem(1)} bytes "
+            f"with one {row_bytes}-byte row slot, the most is {_SMEM_PER_BLOCK})"
+        )
+    need = -(-max(b, 1) // (_SMS * waves(_blocks_per_sm(smem(0)))))  # blocks an SM must hold
+    budget = min(_SMEM_PER_BLOCK, _SMEM_PER_SM // need - _SMEM_RESERVED)
+    ring = min(w, max(0, (budget - smem(0)) // (row_bytes + 8)))
+    while ring > 0 and smem(ring) > budget:
+        ring -= 1
+    ring = max(ring, 1)
+    bps = _blocks_per_sm(smem(ring))
+    return ring, smem(ring), bps, waves(bps)
+
+
 def _loop_form(metric: DistanceMetric, normalized: bool, row_dtype: torch.dtype):
     """(row form, distance form) of the kernel for rows of ``row_dtype``.
     Distance forms: 0 = squared L2 (L2, normalized cosine), 1 = L1,
@@ -344,7 +415,8 @@ def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, res_d=None
     met, deduplicated and ascending (the module docstring).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (one
-    block per query), or raise.
+    block per query, its ring of row slots sized by ``_loop_plan``), or
+    raise.
     """
     form_name, form = _check_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active,
                                   res_d, res_i, metric, normalized, max_iters, node_mask)
@@ -371,6 +443,7 @@ def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, res_d=None
     else:
         kp, mask_p, res_d_p, res_i_p = res_d.shape[1], node_mask.data_ptr(), res_d.data_ptr(), res_i.data_ptr()
         out_d, out_i = torch.empty_like(res_d), torch.empty_like(res_i)
+    ring = _loop_plan(form_name, b, efp, e * m0, e, dp, kp)[0]
     iters = torch.empty((b,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -379,7 +452,7 @@ def beam_loop(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, res_d=None
             beam_d.data_ptr(), beam_i.data_ptr(), beam_x.data_ptr(),
             cand.data_ptr(), active.data_ptr(), mask_p, res_d_p, res_i_p,
             out_d.data_ptr(), out_i.data_ptr(), iters.data_ptr(),
-            b, efp, m0, e, dp, _ROWS[vectors.dtype][2], form, max_iters, kp, stream,
+            b, efp, m0, e, dp, _ROWS[vectors.dtype][2], form, max_iters, kp, ring, stream,
         )
     _raise_for(f"beam_loop ({form_name} rows, EF={efp}, W={e * m0}, Dp={dp}, KP={kp})",
                kernels, lib, rc)
