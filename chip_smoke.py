@@ -122,6 +122,34 @@ Phases, one line each; any failure exits non-zero:
    Each part records the shape (form, EF, W, E, KP, Dp) of every loop
    kernel call its path makes, and fails if one of them is not among
    the shapes it then holds;
+9. persistence on the card (tpuvec_torch/store/snapshot.py, follower.py,
+   native.py; tvstore is compiled from csrc/tvstore.cpp with g++ into
+   build/native/), in a temporary directory, after phase 8a's holds:
+   9a. phase 8a's table after its deletes, updates and rebuild (free
+   slots, scalars and tombstones all present; about 1.99 GB) saved through
+   tvstore (bytes, seconds, GB/s) and loaded on the card (seconds, GB/s;
+   and the file's read alone, with and without the CRC check);
+   the loaded table must equal the live one: rowid map, next slot, free
+   slots, max rowid, live slots, each slot's scalar value, the raw
+   originals, every graph field (torch.equal), integrity_check() == [];
+   knn_many of the 256 queries must give identical rowids and equal
+   distances on four routes: HNSW, the exact scan, one tenant a query and
+   the 50% predicate (f32 and f32+mask must launch, counted as "phase 9");
+   then a tvstore file past 2^31 bytes (a 2^31 + 2^20-byte section and one
+   after it) through the port's bindings must read back equal;
+   9b. a second OS process that imports only tpuvec_torch follows the file
+   with SnapshotFollower on the card and answers the 256 queries through
+   HNSW: equal to the writer's, bitwise; its load time and its time from
+   start to first answer;
+   9c. at a cut, the first 20,000 rows of config 5's data with its
+   columns: an npz round trip held as in 9a; insert_many with autosave
+   off, then into a writer under writer_lock with autosave_path (tvstore)
+   and the default autosave_every=16 (vec/s of both, the saves that
+   completed); a second writer_lock on the path must raise; a reader
+   process follows the last autosave, the writer commits the rest with
+   snapshot.save, and the reader's refresh() must return True with all
+   20,000 rows and answers equal to the writer's;
+   and prints a {"snapshot": ...} line with those figures;
 
 Device times per launch are torch.profiler's; where its trace kept no
 launch of a kernel, they are CUDA events around the launches, and the
@@ -141,9 +169,10 @@ also builds the loop kernel from another beam_update.cu (an earlier
 commit's, or a variant, with extra nvcc FLAGs) and times it beside this
 tree's at every held shape, in turns (other, this, this, other; CUDA
 events), under "against" in the shape's numbers.
-The last two lines are a JSON line with every kernel's numbers (its
-launches on the main paths in all, and by phase in "launches_by_path")
-and the JSON line {"ok": true, "device": {...}}.
+The last lines are the {"snapshot": ...} line, the card's name and power
+limit, a JSON line with every kernel's numbers (its launches on the main
+paths in all, and by phase in "launches_by_path") and the JSON line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -153,8 +182,11 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import select
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -173,6 +205,9 @@ GEN_CHUNK = 250_000  # scripts/probe_10m_binary.py's rows per seeded chunk
 # BASELINE.md config 5 as scripts/bench_suite.py:config_5 runs it, whatever
 # --n says: rows, dims, tenants; the per-query batch and its reps
 C5_N, C5_D, C5_TENANTS, C5_B, C5_REPS = 262_144, 384, 1024, 64, 4
+# phase 9c's cut: the first rows of config 5's data (np.savez_compressed
+# of the full 2 GB table would take about a minute of the host's zlib)
+C9_N = 20_000
 # the loop kernel's name in a profiler trace, and its C entry point
 _LOOP_KERNEL = ("beam_search_level0_kernel", "tpuvec_beam_search_level0")
 
@@ -1792,7 +1827,7 @@ def run_table_config5(torch, device):
          f"in phase 8a: {launches} (the flush {flush_launches['f32']})")
     return dict(table=t, q256=q256, launches=launches, insert_s=insert_s, split=split, points=points,
                 single_qps=single_qps, batch_qps=batch_qps, del_s=del_s, upd_s=upd_s,
-                rebuild_s=rebuild_s)
+                rebuild_s=rebuild_s, head=x[:C9_N].copy(), head_parts=parts[:C9_N].copy())
 
 
 def check_table_loops(torch, device, c5):
@@ -1920,6 +1955,374 @@ def check_table4_loops(torch, device, c4t):
                                        [(ef, coarse_k, default_max_iters(ef, 1))])}
 
 
+# Phase 9b / 9c's reader: a second OS process that imports only the port,
+# follows the snapshot on the card and answers the 256 queries.
+#   argv: repo root, snapshot path, queries (.npy), output prefix, k[, --wait]
+# With --wait it prints its first report, then waits for a line on stdin,
+# refreshes and answers again. Its last line is a JSON report.
+_FOLLOWER = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from tpuvec_torch.store import SnapshotFollower
+
+path, qpath, out, k = sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5])
+q = np.load(qpath)
+
+
+def answer(follower, tag):
+    res = follower.table.knn_many("e", q, k=k)
+    ids = np.full((len(res), k), -1, dtype=np.int64)
+    dists = np.full((len(res), k), np.inf)
+    for b, rr in enumerate(res):
+        for j, r in enumerate(rr):
+            ids[b, j], dists[b, j] = r.rowid, r.distance
+    np.save(f"{out}_{tag}_ids.npy", ids)
+    np.save(f"{out}_{tag}_dists.npy", dists)
+
+
+t = time.perf_counter()
+f = SnapshotFollower(path, device="cuda")
+torch.cuda.synchronize()
+report = {"load_s": time.perf_counter() - t, "rows": len(f), "refreshed_unchanged": f.refresh()}
+answer(f, "first")
+report["first_answer_at"] = time.time()
+if "--wait" in sys.argv:
+    print(json.dumps(report), flush=True)
+    sys.stdin.readline()
+    t = time.perf_counter()
+    report = {"refreshed": f.refresh()}
+    torch.cuda.synchronize()
+    report.update(refresh_s=time.perf_counter() - t, rows=len(f))
+    answer(f, "after")
+report["device"] = str(f.table.device)
+report["foreign_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tpuvec"))
+print(json.dumps(report), flush=True)
+"""
+
+
+def _snapshot_routes():
+    """Phase 9's knn_many routes on a config 5 table, 256 queries: HNSW,
+    the exact scan, one tenant a query (the coded exact scan) and the 50%
+    predicate (f32+mask)."""
+    return {"HNSW": {}, "exact": dict(exact=True),
+            "per-query tenants": dict(partition=[j % C5_TENANTS for j in range(NQ)]),
+            "50% predicate": dict(predicate=_even_rowid)}
+
+
+def _answers(torch, table, q, routes):
+    """(rowids, distances) [256, K] of knn_many on each route."""
+    out = {name: _result_arrays(table.knn_many("e", q, k=K, **kw)) for name, kw in routes.items()}
+    torch.cuda.synchronize()
+    return out
+
+
+def _same_answers(label, got, want):
+    """Each route's rowids identical and distances bitwise equal. Where a
+    route is not, the distances must still be equal and the rowids equal
+    as a set per distinct distance (the kernel not deterministic from run
+    to run: a finding, logged). Returns {route: bitwise equal}."""
+    bitwise = {}
+    for name, (wi, wd) in want.items():
+        gi, gd = got[name]
+        bitwise[name] = bool(np.array_equal(gi, wi) and np.array_equal(gd, wd))
+        if bitwise[name]:
+            continue
+        if not np.array_equal(gd, wd):
+            raise AssertionError(f"snapshot: {label}: {name}: distances differ in "
+                                 f"{int((gd != wd).sum())} places")
+        for row in range(wd.shape[0]):
+            for v in np.unique(wd[row]):
+                if set(gi[row][gd[row] == v]) != set(wi[row][wd[row] == v]):
+                    raise AssertionError(f"snapshot: {label}: {name}: query {row} returns other "
+                                         f"rowids at distance {v}")
+        _log(f"snapshot: {label}: {name}: rowids equal only as a set per distinct distance "
+             f"({int((gi != wi).sum())} places in another order): not deterministic run to run")
+    return bitwise
+
+
+def _decoded_scalars(table, cap):
+    """Each scalar column's value at every slot below ``cap`` (None where
+    NULL): a load interns the values again in the file's order, so codes
+    may be numbered otherwise than the live table's."""
+    return {name: np.array(sc.values + [None], dtype=object)[sc.codes[:cap]]
+            for name, sc in table._scalars.items()}
+
+
+def _hold_loaded(torch, label, got, want):
+    """A loaded table equals the table it was saved from: host state
+    (rowid map, next slot, free slots, max rowid, live slots), each slot's
+    scalar values, the raw originals, every graph field, and
+    integrity_check() == []."""
+    problems = [name for name in ("_rowid_to_slot", "_slot_to_rowid", "_next_slot", "_free_slots",
+                                  "_max_rowid") if getattr(got, name) != getattr(want, name)]
+    cap = want.cap
+    if got.cap != cap or not np.array_equal(got._live[:cap], want._live[:cap]):
+        problems.append("_live")
+    mine, theirs = _decoded_scalars(got, cap), _decoded_scalars(want, cap)
+    problems += [f"scalars {name}" for name in theirs if not np.array_equal(mine[name], theirs[name])]
+    for cname, vc in want.vector_cols.items():
+        gvc = got.vector_cols[cname]
+        if gvc.config != vc.config:
+            problems.append(f"config of {cname}")
+        if gvc.raw.dtype != vc.raw.dtype or not np.array_equal(gvc.raw, vc.raw):
+            problems.append(f"raw::{cname}")
+        for f in dataclasses.fields(vc.state):
+            a, b = getattr(gvc.state, f.name), getattr(vc.state, f.name)
+            if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b):
+                problems.append(f"graph::{cname}::{f.name}")
+    integrity = got.integrity_check()
+    if problems or integrity:
+        raise AssertionError(f"snapshot: {label}: the loaded table differs in {problems}; "
+                             f"integrity_check {integrity}")
+
+
+def _follower(tmp, path, q, tag, wait=False):
+    """Start phase 9's reader process on ``path`` (the module's
+    _FOLLOWER). Returns (process, output prefix, spawn time)."""
+    qpath = os.path.join(tmp, f"{tag}_queries.npy")
+    np.save(qpath, q)
+    out = os.path.join(tmp, tag)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-c", _FOLLOWER, repo, path, qpath, out, str(K)] + (["--wait"] if wait else [])
+    spawned = time.time()
+    proc = subprocess.Popen(cmd, cwd=tmp, text=True, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+    return proc, out, spawned
+
+
+def _follower_report(label, proc, out, tag, want, timeout=600):
+    """Wait for the reader, check its report (no module of JAX or of the
+    JAX package loaded, on the card) and that its answers ``tag`` equal
+    ``want`` (rowids, distances) bitwise."""
+    stdout, stderr = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"snapshot: {label}: reader process exit {proc.returncode}:\n{stderr[-4000:]}")
+    report = json.loads(stdout.strip().splitlines()[-1])
+    if report["foreign_modules"] or not report["device"].startswith("cuda"):
+        raise AssertionError(f"snapshot: {label}: reader report {report}")
+    ids, dists = np.load(f"{out}_{tag}_ids.npy"), np.load(f"{out}_{tag}_dists.npy")
+    if not (np.array_equal(ids, want[0]) and np.array_equal(dists, want[1])):
+        raise AssertionError(f"snapshot: {label}: the reader's answers differ from the writer's in "
+                             f"{int((ids != want[0]).sum())} rowids, {int((dists != want[1]).sum())} "
+                             "distances")
+    return report
+
+
+def _first_line(label, proc, timeout=600):
+    """The reader's first JSON line (it then waits for its cue)."""
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    line = proc.stdout.readline() if ready else ""
+    if not line:
+        proc.kill()
+        _, stderr = proc.communicate()
+        raise AssertionError(f"snapshot: {label}: reader process gave no first report:\n{stderr[-4000:]}")
+    return json.loads(line)
+
+
+def _past_2gib(native, tmp):
+    """A tvstore file past 2^31 bytes through the port's bindings (config
+    5's file stays under it): a uint64 section of 2^31 + 2^20 bytes, then
+    a small one whose offset is past 2^31; both must read back equal.
+    Returns its figures."""
+    big = np.arange((2**31 + 2**20) // 8, dtype=np.uint64)
+    tail = np.arange(7, dtype=np.int32)
+    path = os.path.join(tmp, "big.tvs")
+    t0 = time.perf_counter()
+    w = native.TvsWriter(path)
+    w.add("big", big)
+    w.add("tail", tail)
+    w.finish()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = native.TvsReader(path)
+    try:
+        out = r.read_all()
+    finally:
+        r.close()
+    read_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    os.unlink(path)
+    if not (out["big"].dtype == big.dtype and np.array_equal(out["big"], big)
+            and np.array_equal(out["tail"], tail)):
+        raise AssertionError("snapshot: a tvstore file past 2^31 bytes did not read back equal")
+    return dict(bytes=nbytes, write_s=write_s, read_s=read_s, equal=True)
+
+
+def run_snapshots(torch, device, c5, tmp):
+    """Phase 9 (the module docstring): config 5's table saved through
+    tvstore, reloaded on the card and followed from a second process (9a,
+    9b); npz, autosave and a follower's refresh at C9_N rows (9c). Returns
+    the {"snapshot": ...} figures and the loop kernel's launches."""
+    from tpuvec_torch import native
+    from tpuvec_torch.store import ColumnSpec, VecTable, snapshot, writer_lock
+    from tpuvec_torch.types import DistanceMetric, InvalidState
+
+    t, q = c5["table"], c5["q256"]
+    routes = _snapshot_routes()
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("snapshot: the tvstore library did not build (g++, csrc/tvstore.cpp)")
+    _log(f"snapshot: tvstore library {native._target().name} built or found in "
+         f"{time.perf_counter() - t0:.2f}s")
+
+    # 9a. save, load and hold, at full size
+    path = os.path.join(tmp, "config5.tvs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snapshot.save(t, path, engine="native")
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    want = _answers(torch, t, q, routes)
+    _reset_launches()
+    t0 = time.perf_counter()
+    loaded = snapshot.load(path, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    _hold_loaded(torch, "config 5, tvstore", loaded, t)
+    got = _answers(torch, loaded, q, routes)
+    launches, bu = _launches()
+    bitwise = _same_answers("config 5, tvstore", got, want)
+    # where the load's time goes: the file read with and without the
+    # engine's CRC check (the file is in the page cache)
+    t0 = time.perf_counter()
+    r = native.TvsReader(path, verify=False)
+    try:
+        r.read_all()
+    finally:
+        r.close()
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snapshot._open_archive(path)
+    read_crc_s = time.perf_counter() - t0
+    if (launches["f32"] == 0 or launches["f32+mask"] == 0 or bu
+            or any(launches[f] for f in launches if f not in ("f32", "f32+mask"))):
+        raise AssertionError(f"snapshot: the reloaded table's launches {launches}, beam_update {bu}")
+    a = dict(rows=len(loaded), cap=loaded.cap, bytes=nbytes, save_s=save_s, save_gb_s=nbytes / save_s / 1e9,
+             load_s=load_s, load_gb_s=nbytes / load_s / 1e9, read_s=read_s, read_crc_s=read_crc_s,
+             routes_bitwise_equal=bitwise, launches=launches)
+    _log(f"snapshot: 9a: config 5 ({len(t)} rows, cap {t.cap}) saved through tvstore: {nbytes} bytes "
+         f"in {save_s:.2f}s = {a['save_gb_s']:.3f} GB/s; loaded on the card in {load_s:.2f}s = "
+         f"{a['load_gb_s']:.3f} GB/s (the file's read alone {read_s:.2f}s, with the CRC check "
+         f"{read_crc_s:.2f}s); host state, scalars, raw and every graph field equal, "
+         f"integrity_check() == []; knn_many of {NQ} on {list(routes)}: bitwise equal {bitwise}; "
+         f"loop kernel launches {launches}")
+    del loaded, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9b. a reader in a second OS process
+    proc, out, spawned = _follower(tmp, path, q, "9b")
+    try:
+        rep = _follower_report("9b", proc, out, "first", want["HNSW"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if rep["rows"] != len(t) or rep["refreshed_unchanged"]:
+        raise AssertionError(f"snapshot: 9b: reader report {rep}")
+    b = dict(start_to_first_answer_s=rep["first_answer_at"] - spawned, load_s=rep["load_s"],
+             rows=rep["rows"], answers_equal=True)
+    _log(f"snapshot: 9b: a second process (tpuvec_torch only) followed the file on the card: load "
+         f"{rep['load_s']:.2f}s, start to first answer {b['start_to_first_answer_s']:.2f}s; its "
+         f"{NQ} HNSW answers equal the writer's bitwise")
+    os.unlink(path)
+    big = _past_2gib(native, tmp)
+    a["past_2gib"] = big
+    _log(f"snapshot: 9a: a tvstore file of {big['bytes']} bytes (past 2^31) written in "
+         f"{big['write_s']:.2f}s and read in {big['read_s']:.2f}s through the port's bindings: equal")
+
+    # 9c. npz, autosave and a follower's refresh, at C9_N rows
+    x, parts = c5["head"], c5["head_parts"]
+    rows = [{"e": x[i], "tenant": int(parts[i])} for i in range(C9_N)]
+    cols = [ColumnSpec.vector("e", C5_D, metric=DistanceMetric.COSINE), ColumnSpec.partition_key("tenant")]
+    _reset_launches()
+
+    def timed_insert(table):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table.insert_many(rows, rowids=list(range(C9_N)))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    plain = VecTable("bench5", cols, initial_cap=C9_N, device=device)
+    off_s = timed_insert(plain)
+    npz = os.path.join(tmp, "cut.npz")
+    t0 = time.perf_counter()
+    snapshot.save(plain, npz, engine="npz")
+    npz_save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = snapshot.load(npz, device=device)
+    torch.cuda.synchronize()
+    npz_load_s = time.perf_counter() - t0
+    _hold_loaded(torch, f"{C9_N} rows, npz", loaded, plain)
+    npz_bitwise = _same_answers(f"{C9_N} rows, npz", _answers(torch, loaded, q, routes),
+                                _answers(torch, plain, q, routes))
+    del loaded
+
+    saves, real_save = [], snapshot.save
+
+    def counted_save(*args, **kw):
+        real_save(*args, **kw)
+        saves.append(time.perf_counter())
+
+    tvs = os.path.join(tmp, "auto.tvs")
+    snapshot.save = counted_save
+    try:
+        with writer_lock(tvs):
+            writer = VecTable("bench5", cols, initial_cap=C9_N, autosave_path=tvs, device=device)
+            on_s = timed_insert(writer)
+            t0 = time.perf_counter()
+            writer.wait_autosave()
+            wait_s = time.perf_counter() - t0
+            autosaves = len(saves)
+            if autosaves == 0:
+                raise AssertionError("snapshot: 9c: no autosave completed")
+            try:
+                with writer_lock(tvs):
+                    raise AssertionError("snapshot: 9c: a second writer_lock on the path was granted")
+            except InvalidState:
+                pass
+            proc, out, _ = _follower(tmp, tvs, q, "9c", wait=True)
+            try:
+                first = _first_line("9c", proc)
+                t0 = time.perf_counter()
+                snapshot.save(writer, tvs)  # the writer's commit of the rows since its last autosave
+                commit_s = time.perf_counter() - t0
+                want9c = _answers(torch, writer, q, {"HNSW": {}})["HNSW"]
+                proc.stdin.write("refresh\n")
+                proc.stdin.flush()
+                rep = _follower_report("9c", proc, out, "after", want9c)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    finally:
+        snapshot.save = real_save
+    launches_9c, bu = _launches()
+    if not rep["refreshed"] or rep["rows"] != C9_N or bu:
+        raise AssertionError(f"snapshot: 9c: reader report {rep}, beam_update {bu}")
+    c = dict(rows=C9_N, reduced=f"the first {C9_N} of config 5's {C5_N} rows",
+             npz=dict(bytes=os.path.getsize(npz), save_s=npz_save_s, load_s=npz_load_s,
+                      routes_bitwise_equal=npz_bitwise),
+             insert_vec_s_autosave_off=C9_N / off_s, insert_vec_s_autosave_on=C9_N / on_s,
+             wait_autosave_s=wait_s, autosave_every=writer.autosave_every, autosaves_completed=autosaves,
+             rows_in_last_autosave=first["rows"], commit_s=commit_s, tvstore_bytes=os.path.getsize(tvs),
+             follower=dict(refreshed=rep["refreshed"], rows=rep["rows"], refresh_s=rep["refresh_s"],
+                           answers_equal=True),
+             second_writer_lock_raised=True, launches=launches_9c)
+    _log(f"snapshot: 9c: {C9_N} rows of config 5: npz {c['npz']['bytes']} bytes, save "
+         f"{npz_save_s:.2f}s, load {npz_load_s:.2f}s, held equal, knn_many bitwise equal "
+         f"{npz_bitwise}; insert_many {c['insert_vec_s_autosave_off']:.0f} vec/s with autosave off, "
+         f"{c['insert_vec_s_autosave_on']:.0f} vec/s with autosave_every=16 ({autosaves} saves "
+         f"completed, wait_autosave {wait_s:.2f}s); the reader loaded the last autosave's "
+         f"{first['rows']} rows, then after the writer's commit ({commit_s:.2f}s) refresh() == True "
+         f"in {rep['refresh_s']:.2f}s with all {rep['rows']} rows, answers equal the writer's; a "
+         f"second writer_lock raised InvalidState; loop kernel launches {launches_9c}")
+    return dict(config5_tvstore=a, follower_process=b, cut=c)
+
+
 def main() -> int:
     import argparse
 
@@ -1967,6 +2370,12 @@ def main() -> int:
         c5 = run_table_config5(torch, device)
     c5_shapes = check_table_loops(torch, device, c5)
     _check_held("8a", seen, c5_shapes)
+    t9 = time.time()
+    with tempfile.TemporaryDirectory(prefix="tpuvec-snapshots-") as tmp, \
+            _loop_shapes_seen(torch) as seen:
+        snap = run_snapshots(torch, device, c5, tmp)
+    _check_held("9", seen, c5_shapes)
+    _log(f"snapshot: phase 9 took {time.time() - t9:.1f}s")
     del c5["table"]
     torch.cuda.empty_cache()
     with _loop_shapes_seen(torch) as seen:
@@ -2005,7 +2414,9 @@ def main() -> int:
               {"phase 4": run["launches"]["beam_update"]}, on("phase 3", update_shapes),
               update_shapes[-1]),
         entry("beam_search_level0[f32]", loop_src,
-              {"phase 4": run["launches"]["f32"], "phase 8a": c5["launches"]["f32"]},
+              {"phase 4": run["launches"]["f32"], "phase 8a": c5["launches"]["f32"],
+               "phase 9": snap["config5_tvstore"]["launches"]["f32"],
+               "phase 9c": snap["cut"]["launches"]["f32"]},
               on("phase 3b", loop_shapes) + on("phase 8a", c5_shapes["f32"]), loop_shapes[-1]),
         entry("beam_search_level0[int8]", loop_src, {"phase 6": qruns["int8"]["launches"]},
               on("phase 3c", qshapes["int8"]), qshapes["int8"][1]),
@@ -2018,7 +2429,9 @@ def main() -> int:
     # int8's and words' the one shape of configs 3 and 4 (k=48, ef=64)
     masked_src = "tpuvec/index/search.py:295-316 + 363-383"
     masked_paths = {
-        "f32": {"phase 7": filt["launches"]["f32+mask"], "phase 8a": c5["launches"]["f32+mask"]},
+        "f32": {"phase 7": filt["launches"]["f32+mask"], "phase 8a": c5["launches"]["f32+mask"],
+                "phase 9": snap["config5_tvstore"]["launches"]["f32+mask"],
+                "phase 9c": snap["cut"]["launches"]["f32+mask"]},
         "int8": {"phase 7": filt["launches"]["int8+mask"]},
         "words": {"phase 7": filt["launches"]["words+mask"],
                   "phase 8b": c4t["launches"]["words+mask"]},
@@ -2030,6 +2443,7 @@ def main() -> int:
               on("phase 3d", mshapes[form]) + table_masked.get(form, []), mshapes[form][0])
         for form, paths in masked_paths.items()
     ]
+    _log(json.dumps({"snapshot": snap}))
     _log(card)
     _log(json.dumps({"kernels": kernels_line}))
     _log(json.dumps({

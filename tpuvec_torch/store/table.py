@@ -30,8 +30,14 @@ Where the port differs: every tensor lives on ``device`` (default
 batches go to the device at their own length, not padded to a fixed shape
 (torch has nothing to recompile); each flush batch passes the JAX
 package's padded width (16 or 256) as ``insert_batch(width=)``, so the
-upper stage's cap is the JAX package's. Mesh-backed tables and autosave
-are not ported yet and raise ``NotImplementedError``.
+upper stage's cap is the JAX package's. Mesh-backed tables are not
+ported yet and raise ``NotImplementedError``.
+
+Opt-in durability, as in the JAX package: with ``autosave_path`` every
+``autosave_every`` flushes start an atomic snapshot (``store/snapshot.py``)
+on a daemon thread that holds the table's lock; a trigger that arrives
+while a save is in flight folds into the next one, so a crash loses at
+most the rows since the last completed save.
 """
 
 from __future__ import annotations
@@ -327,6 +333,7 @@ class VecTable:
         initial_cap: int = 1024,
         mesh=None,
         autosave_path: str | None = None,
+        autosave_every: int = 16,
         device: str | torch.device = "cuda",
     ):
         if not any(c.kind == "vector" for c in columns):
@@ -338,10 +345,6 @@ class VecTable:
             raise NotImplementedError(
                 "mesh-backed tables are not ported yet (parallel/sharding.py; "
                 "ROADMAP.md, queue 1, item 4)"
-            )
-        if autosave_path is not None:
-            raise NotImplementedError(
-                "autosave is not ported yet (store/snapshot.py; ROADMAP.md, queue 1, item 1)"
             )
         self.name = name
         self.columns = list(columns)
@@ -369,6 +372,12 @@ class VecTable:
         self._max_rowid = 0
         self._pending: list[tuple[int, int, dict[str, Vector]]] = []
         self._lock = threading.RLock()
+        # write-behind atomic snapshot every N flushes: a kill -9 loses at
+        # most the rows since the last completed autosave
+        self.autosave_path = autosave_path
+        self.autosave_every = max(1, int(autosave_every))
+        self._flushes_since_save = 0
+        self._autosave_thread: threading.Thread | None = None
         # device copies of the live mask and the partition codes, keyed by
         # (_version, cap): repeated filtered queries reuse one upload
         self._dev_cache: dict[Any, tuple[tuple[int, int], torch.Tensor]] = {}
@@ -527,6 +536,38 @@ class VecTable:
                     )
                     pos += take
                     size += take
+            if self.autosave_path is not None:
+                self._flushes_since_save += 1
+                if self._flushes_since_save >= self.autosave_every:
+                    self._maybe_autosave()
+
+    def _maybe_autosave(self) -> None:
+        """Write-behind snapshot: a daemon thread takes the table lock and
+        writes the atomic snapshot (tmp + rename, so a crash mid-save keeps
+        the previous one). If a save is already in flight this trigger
+        folds into the next: the loss bound stays ~N flushes + one save.
+        The save's own flush runs on that thread while it is alive, so it
+        starts no second save."""
+        t = self._autosave_thread
+        if t is not None and t.is_alive():
+            return
+        self._flushes_since_save = 0
+
+        def run():
+            from tpuvec_torch.store import snapshot
+
+            with self._lock:
+                snapshot.save(self, self.autosave_path)
+
+        t = threading.Thread(target=run, daemon=True, name=f"tpuvec-autosave-{self.name}")
+        self._autosave_thread = t
+        t.start()
+
+    def wait_autosave(self) -> None:
+        """Block until any in-flight autosave completes (tests/shutdown)."""
+        t = self._autosave_thread
+        if t is not None:
+            t.join()
 
     def _prepare_rows(self, vc: _VectorColumn, vals: np.ndarray) -> torch.Tensor:
         """User values [n, dim] (0/1 bits for a BIT column) -> the index's
