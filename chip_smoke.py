@@ -104,9 +104,10 @@ Phases, one line each; any failure exits non-zero:
    launch in the flush and in the reads, f32+mask in the predicate query.
    Then, on the table's graph, the loop kernel against beam_loop_plain at
    the shapes config 5 gives it (search EF=256, W=64; construction EF=512,
-   E=2, W=128; the predicate's masked search under the table's 50% mask,
-   KP=32, EF=256, W=64) to phase 3b's tolerances, with device time and
-   bound;
+   E=2, W=128, at B=256 and at B=1, which the first batches of an insert
+   into an empty graph launch; the predicate's masked search under the
+   table's 50% mask, KP=32, EF=256, W=64) to phase 3b's tolerances, with
+   device time and bound;
    8b. config 4 through the table: phase 6's data and params, 1024-d f32
    with BINARY quantization and a metadata column bucket = rowid % 10;
    the column must hold its f32 rerank shadow on the card; knn_many
@@ -116,12 +117,13 @@ Phases, one line each; any failure exits non-zero:
    reads, words+mask in the filtered read. Each read's split into descent,
    level-0 loop, exact scan, rerank and host is logged. Then, on the
    table's graph, the words form against beam_loop_plain at the flush's
-   construction shape (EF=256, E=2, W=64) and the reads' search shape
-   (k=100: EF=128, W=32), and words+mask under the table's bucket-5 mask
-   at the filtered read's shape (KP=256, EF=128), each exactly equal.
-   Each part records the shape (form, EF, W, E, KP, Dp) of every loop
-   kernel call its path makes, and fails if one of them is not among
-   the shapes it then holds;
+   construction shape (EF=256, E=2, W=64, at B=256 and at B=1) and the
+   reads' search shape (k=100: EF=128, W=32), and words+mask under the
+   table's bucket-5 mask at the filtered read's shape (KP=256, EF=128),
+   each exactly equal. Each part records the shape (form, EF, W, E, KP,
+   Dp, B == 1) of every loop kernel call its path makes, and fails if one
+   of them is not among the shapes it then holds, a launch of one query
+   held at B=1 (16 queries, one a launch);
 9. persistence on the card (tpuvec_torch/store/snapshot.py, follower.py,
    native.py; tvstore is compiled from csrc/tvstore.cpp with g++ into
    build/native/), in a temporary directory, after phase 8a's holds:
@@ -150,6 +152,39 @@ Phases, one line each; any failure exits non-zero:
    snapshot.save, and the reader's refresh() must return True with all
    20,000 rows and answers equal to the writer's;
    and prints a {"snapshot": ...} line with those figures;
+10. the vec0 SQL surface on the card (tpuvec_torch/sql/), after phase 8b,
+   the earlier tables freed: connect(device="cuda") and CREATE VIRTUAL
+   TABLE docs USING vec0(emb float[768] hnsw(M=32, ef_construction=400),
+   label TEXT) (BASELINE.md's 768D SQL insert settings; ef_search the DDL
+   default 200) over phase 4's --n x 768 rows, label = 'l' || (rowid % 10):
+   BEGIN, executemany of every INSERT with f32 blobs, COMMIT (vec/s, the
+   statements' handling against the flush by the insert stage timers) and
+   VecTable.insert_many of the same rows beside it; phase 4's 256 queries
+   as 256 single `SELECT rowid, distance FROM docs WHERE emb MATCH ? AND
+   k = 10` statements at the default ef and with `AND ef = ?` at 16, 32
+   and 64: each statement's rows bitwise equal to VecTable.knn, recall@10
+   >= 0.95 against knn_many(exact=True) at the default ef, p50 / p99 ms,
+   statements/s and a statement's split into host, descent and level-0
+   loop (synchronised timers, over the first 32 statements of each ef); the same under `AND label = ?` (10% of
+   rows): every rowid carries its label, recall@10 >= 0.90 against the
+   exact masked scan; a KNN join with a plain SQLite table and a CTE over
+   a MATCH must give the planner's rowids and distances; a full-table
+   GROUP BY through the mirror on a cut table of the first 10,000 rows
+   (seconds, microseconds a row, and the full table too when that
+   predicts <= 60 s at --n); DELETE of every 10th rowid in a transaction,
+   ROLLBACK: the count and the 256 statements' answers as before; the
+   deletes again, committed; UPDATE of 100 rows by rowid, each read back;
+   integrity_check() == []; vec_rebuild_hnsw('docs', 'emb', 16, 200) and
+   recall@10 >= 0.95 again. Every KNN statement must launch the loop
+   kernel (f32, or f32+mask under the label), and the UPDATEs and the
+   rebuild must launch it; the launches reported as phase 10's are those
+   of SQL statements alone, not of the VecTable calls they are held
+   against (their counts are set aside). Then every loop-kernel shape the phase
+   launched is held against beam_loop_plain to phase 3b's tolerances on
+   the table's graph before and after the rebuild, a launch of one query
+   (B=1) at B=1 (16 queries, one a launch) and a launch of more at
+   B=256, and the phase fails if a shape it launched is not held; it
+   prints a {"sql": ...} line with those figures;
 
 Device times per launch are torch.profiler's; where its trace kept no
 launch of a kernel, they are CUDA events around the launches, and the
@@ -169,7 +204,7 @@ also builds the loop kernel from another beam_update.cu (an earlier
 commit's, or a variant, with extra nvcc FLAGs) and times it beside this
 tree's at every held shape, in turns (other, this, this, other; CUDA
 events), under "against" in the shape's numbers.
-The last lines are the {"snapshot": ...} line, the card's name and power
+The last lines are the {"snapshot": ...} and {"sql": ...} lines, the card's name and power
 limit, a JSON line with every kernel's numbers (its launches on the main
 paths in all, and by phase in "launches_by_path") and the JSON line
 {"ok": true, "device": {...}}.
@@ -208,6 +243,20 @@ C5_N, C5_D, C5_TENANTS, C5_B, C5_REPS = 262_144, 384, 1024, 64, 4
 # phase 9c's cut: the first rows of config 5's data (np.savez_compressed
 # of the full 2 GB table would take about a minute of the host's zlib)
 C9_N = 20_000
+# phase 10: the SQL surface on BASELINE.md's 768D SQL insert settings
+# (in-memory + transaction, M=32, ef_construction=400; ef_search stays the
+# DDL default 200) over phase 4's data; the efs bound by `AND ef = ?`
+# besides the default; the rows of the cut table the full-table composed
+# statement runs on (it mirrors every row as JSON text); the statements of
+# each ef whose layers are timed apart
+SQL_DDL = ("CREATE VIRTUAL TABLE docs USING vec0(emb float[768] hnsw(M=32, ef_construction=400), "
+           "label TEXT)")
+SQL_EFS = (None, 16, 32, 64)
+SQL_MIRROR_N = 10_000
+SQL_SPLIT_N = 32
+# the queries a B=1 shape (one query a launch: a SQL statement, or the first
+# batches of a table's doubling insert schedule) is held on, one a launch
+B1_QUERIES = 16
 # the loop kernel's name in a profiler trace, and its C entry point
 _LOOP_KERNEL = ("beam_search_level0_kernel", "tpuvec_beam_search_level0")
 
@@ -856,47 +905,74 @@ def check_loop_kernel(torch, device, run):
     return _hold_loop(torch, cfg, state, cases)
 
 
-def _hold_loop(torch, cfg, state, cases):
+def _each(torch, fn, argsets, **kw):
+    """``fn`` (beam_loop or beam_loop_plain) on each argument set in turn:
+    the distances and ids stacked, and each call's iterations."""
+    outs = [fn(*args, **kw) for args in argsets]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), [o[2] for o in outs]
+
+
+def _loop_argsets(cfg, state, q, ef, e, one_by_one=0, **seed_kw):
+    """The loop's arguments for the queries ``q``: one batch of them, or
+    (``one_by_one``) a batch of one for each of the first ``one_by_one``."""
+    from tpuvec_torch.index.search import descend_to_level1, seed_beam
+
+    qs = [q[j : j + 1] for j in range(one_by_one)] if one_by_one else [q]
+    return [(qq, state.vectors, state.adj0,
+             *seed_beam(*descend_to_level1(cfg, state, qq), ef=ef, n_expand=e, **seed_kw)) for qq in qs]
+
+
+def _hold_loop(torch, cfg, state, cases, one_by_one=0):
     """beam_loop against beam_loop_plain on one f32 graph, for each case
     (queries, their exact top-10 ids, ef, E, max_iters): after one
     iteration within 1e-5 (ids equal where slots are apart); over the full
-    loop >= 99% of top-10 ids equal and recall@10 within 0.002. Returns
-    each shape's numbers: device time, bound, the plain loop's time."""
-    from tpuvec_torch.index.search import descend_to_level1, seed_beam
+    loop >= 99% of top-10 ids equal and recall@10 within 0.002. With
+    ``one_by_one`` the first that many queries run as batches of one (B=1),
+    each launch held the same way, and the times are a launch of one.
+    Returns each shape's numbers: device time, bound, the plain loop's time."""
     from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain
 
     kw = dict(metric=cfg.graph_metric, normalized=cfg.normalized)
     shapes = []
     for q, gt, ef, e, max_iters in cases:
-        args = (q, state.vectors, state.adj0, *seed_beam(*descend_to_level1(cfg, state, q), ef=ef, n_expand=e))
-        b, efp, w, dp = q.shape[0], args[3].shape[1], e * cfg.max_m0, q.shape[1]
-        label = f"B={b} EF={efp} W={w} E={e}"
-        one_k = beam_loop(*args, **kw, max_iters=1)
-        one_p = beam_loop_plain(*args, **kw, max_iters=1)
+        argsets = _loop_argsets(cfg, state, q, ef, e, one_by_one)
+        args = argsets[0]
+        b, efp, w, dp = args[0].shape[0], args[3].shape[1], e * cfg.max_m0, q.shape[1]
+        nq = one_by_one or q.shape[0]
+        label = f"B={b} EF={efp} W={w} E={e}" + (f" ({nq} queries, one a launch)" if one_by_one else "")
+        one_k = _each(torch, beam_loop, argsets, **kw, max_iters=1)
+        one_p = _each(torch, beam_loop_plain, argsets, **kw, max_iters=1)
         err = _check_one_iteration(torch, label, one_k[0], one_k[1], one_p[0], one_p[1])
 
-        kd, ki, k_it = beam_loop(*args, **kw, max_iters=max_iters)
+        kd, ki, k_its = _each(torch, beam_loop, argsets, **kw, max_iters=max_iters)
         fresh, adj, (pd, pi, p_it) = _loop_visits(torch, args, dict(kw, max_iters=max_iters))
+        p_its = [p_it]
+        if one_by_one:  # the bound counts the first launch's rows; the hold, every launch's
+            pd, pi, p_its = _each(torch, beam_loop_plain, argsets, **kw, max_iters=max_iters)
+        k_it, p_it = max(k_its), max(p_its)
         same = float((ki[:, :K] == pi[:, :K]).float().mean())
-        r_k, r_p = _recall(ki[:, :K].cpu().numpy(), gt), _recall(pi[:, :K].cpu().numpy(), gt)
+        r_k, r_p = _recall(ki[:, :K].cpu().numpy(), gt[:nq]), _recall(pi[:, :K].cpu().numpy(), gt[:nq])
         if same < 0.99 or abs(r_k - r_p) > 0.002:
             raise AssertionError(
                 f"beam_loop {label}: top-10 ids equal {same:.4f} (< 0.99?), recall@10 "
                 f"{r_k:.4f} vs plain {r_p:.4f} (more than 0.002 apart?)"
             )
+        # the times, the bound and the plan are those of the first launch
         ms, ms_source = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10,
                                    *_LOOP_KERNEL)
         call_ms = _time_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10)
         plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
         iters_t = torch.empty((b,), dtype=torch.int32)
-        bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj, (kd, ki, iters_t))
-        plan = _loop_fields(torch, "f32", args, kw, max_iters, ms, k_it)
+        bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj,
+                                                              (kd[:b], ki[:b], iters_t))
+        plan = _loop_fields(torch, "f32", args, kw, max_iters, ms, k_its[0])
         shapes.append(dict(
-            B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_it, plain_iters=p_it,
+            B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_its[0], plain_iters=p_its[0],
             ms=ms, ms_source=ms_source, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by,
             distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err,
             top10_same=same, recall=r_k, plain_recall=r_p, **plan,
+            **({"queries_held": nq, "most_iters": k_it} if one_by_one else {}),
         ))
         _log(
             f"kernels: beam_loop ~ plain at {label} Dp={dp}: 1 iteration max err {err:.2e}; "
@@ -1223,11 +1299,13 @@ def check_quantized_loops(torch, device, qruns):
     return shapes
 
 
-def _hold_quantized(torch, form, cfg, state, metric, cases):
+def _hold_quantized(torch, form, cfg, state, metric, cases, one_by_one=0):
     """beam_loop against beam_loop_plain on one int8 or word graph under one
     (label, metric, normalized, tolerance), for each case (queries, ef, E,
     max_iters): at tolerance 0 exactly equal in ids, distances and
-    iterations, else within it. Returns each shape's numbers."""
+    iterations, else within it. With ``one_by_one`` the first that many
+    queries run as batches of one (B=1), each launch held the same way, and
+    the times are a launch of one. Returns each shape's numbers."""
     from tpuvec_torch.index.search import descend_to_level1, seed_beam
     from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain, node_dist
 
@@ -1235,36 +1313,46 @@ def _hold_quantized(torch, form, cfg, state, metric, cases):
     kw = dict(metric=metric, normalized=normalized)
     shapes = []
     for q, ef, e, max_iters in cases:
-        seed_i, _ = descend_to_level1(cfg, state, q)
-        seed_d = node_dist(metric, normalized, state.vectors, q, seed_i[:, None])[:, 0]
-        args = (q, state.vectors, state.adj0, *seed_beam(seed_i, seed_d, ef=ef, n_expand=e))
-        b, efp, w, dp = q.shape[0], args[3].shape[1], e * cfg.max_m0, q.shape[1]
-        label = f"{form} {mlabel} B={b} EF={efp} W={w} E={e} Dp={dp}"
-        kd, ki, k_it = beam_loop(*args, **kw, max_iters=max_iters)
+        argsets = []
+        for qq in ([q[j : j + 1] for j in range(one_by_one)] if one_by_one else [q]):
+            seed_i, _ = descend_to_level1(cfg, state, qq)
+            seed_d = node_dist(metric, normalized, state.vectors, qq, seed_i[:, None])[:, 0]
+            argsets.append((qq, state.vectors, state.adj0, *seed_beam(seed_i, seed_d, ef=ef, n_expand=e)))
+        args = argsets[0]
+        b, efp, w, dp = args[0].shape[0], args[3].shape[1], e * cfg.max_m0, q.shape[1]
+        label = (f"{form} {mlabel} B={b} EF={efp} W={w} E={e} Dp={dp}"
+                 + (f" ({one_by_one} queries, one a launch)" if one_by_one else ""))
+        kd, ki, k_its = _each(torch, beam_loop, argsets, **kw, max_iters=max_iters)
         fresh, adj, (pd, pi, p_it) = _loop_visits(torch, args, dict(kw, max_iters=max_iters))
+        p_its = [p_it]
+        if one_by_one:  # the bound counts the first launch's rows; the hold, every launch's
+            pd, pi, p_its = _each(torch, beam_loop_plain, argsets, **kw, max_iters=max_iters)
+        k_it, p_it = max(k_its), max(p_its)
         if tol == 0.0:
-            if not (torch.equal(kd, pd) and torch.equal(ki, pi) and k_it == p_it):
+            if not (torch.equal(kd, pd) and torch.equal(ki, pi) and k_its == p_its):
                 raise AssertionError(
                     f"beam_loop {label}: not exactly equal to plain: ids differ in "
-                    f"{int((ki != pi).sum())} slots, iterations {k_it} vs {p_it}"
+                    f"{int((ki != pi).sum())} slots, iterations {k_its} vs {p_its}"
                 )
             err = 0.0
         else:
             err = _check_one_iteration(torch, label, kd, ki, pd, pi, tol=tol,
                                        when="over the full loop")
-            if k_it != p_it:
-                raise AssertionError(f"beam_loop {label}: iterations {k_it} vs plain {p_it}")
+            if k_its != p_its:
+                raise AssertionError(f"beam_loop {label}: iterations {k_its} vs plain {p_its}")
         ms, ms_source = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters),
                                    10, *_LOOP_KERNEL)
         plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
         iters_t = torch.empty((b,), dtype=torch.int32)
-        bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj, (kd, ki, iters_t))
-        plan = _loop_fields(torch, form, args, kw, max_iters, ms, k_it)
+        bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj,
+                                                              (kd[:b], ki[:b], iters_t))
+        plan = _loop_fields(torch, form, args, kw, max_iters, ms, k_its[0])
         shapes.append(dict(
-            metric=mlabel, B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_it,
+            metric=mlabel, B=b, EF=efp, W=w, E=e, Dp=dp, max_iters=max_iters, iters=k_its[0],
             ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by,
             distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err, **plan,
+            **({"queries_held": one_by_one, "most_iters": k_it} if one_by_one else {}),
         ))
         same = "exactly equal to plain" if tol == 0.0 else f"within {tol:g} of plain (max err {err:.2e})"
         _log(
@@ -1481,34 +1569,39 @@ def check_masked_loops(torch, device, run, qruns, filt):
     return shapes
 
 
-def _hold_masked(torch, form, cfg, state, q, mask, cases, gt=None):
+def _hold_masked(torch, form, cfg, state, q, mask, cases, gt=None, one_by_one=0):
     """beam_loop(node_mask=) against beam_loop_plain(node_mask=) on one graph
     under one mask, for each case (ef, k_out, max_iters) at E=1: f32 (``gt``
     the exact masked top-10 ids) to phase 3b's tolerances, int8 and words
-    exactly equal in ids, distances and iterations. Returns each shape's
-    numbers: device time, bound (the distinct rows plus the mask bytes they
-    read), the plain loop's time."""
-    from tpuvec_torch.index.search import descend_to_level1, seed_beam
+    exactly equal in ids, distances and iterations. With ``one_by_one`` the
+    first that many queries run as batches of one (f32 only), as
+    _hold_loop's. Returns each shape's numbers: device time, bound (the
+    distinct rows plus the mask bytes they read), the plain loop's time."""
     from tpuvec_torch.ops.beam import beam_loop, beam_loop_plain
 
     kw = dict(metric=cfg.graph_metric, normalized=cfg.normalized, node_mask=mask)
-    seeds = descend_to_level1(cfg, state, q)
     shapes = []
     for ef, k_out, max_iters in cases:
         e = 1
-        args = (q, state.vectors, state.adj0,
-                *seed_beam(*seeds, ef=ef, n_expand=e, node_mask=mask, k_out=k_out))
-        b, efp, kp, dp = q.shape[0], args[3].shape[1], args[8].shape[1], q.shape[1]
-        label = f"{form}+mask B={b} EF={efp} W={e * cfg.max_m0} E={e} KP={kp} Dp={dp}"
-        kd, ki, k_it = beam_loop(*args, **kw, max_iters=max_iters)
+        argsets = _loop_argsets(cfg, state, q, ef, e, one_by_one, node_mask=mask, k_out=k_out)
+        args = argsets[0]
+        b, efp, kp, dp = args[0].shape[0], args[3].shape[1], args[8].shape[1], q.shape[1]
+        nq = one_by_one or q.shape[0]
+        label = (f"{form}+mask B={b} EF={efp} W={e * cfg.max_m0} E={e} KP={kp} Dp={dp}"
+                 + (f" ({nq} queries, one a launch)" if one_by_one else ""))
+        kd, ki, k_its = _each(torch, beam_loop, argsets, **kw, max_iters=max_iters)
         fresh, adj, (pd, pi, p_it) = _loop_visits(torch, args, dict(kw, max_iters=max_iters))
+        p_its = [p_it]
+        if one_by_one:  # the bound counts the first launch's rows; the hold, every launch's
+            pd, pi, p_its = _each(torch, beam_loop_plain, argsets, **kw, max_iters=max_iters)
+        k_it, p_it = max(k_its), max(p_its)
         extra = {}
         if form == "f32":
-            one_k = beam_loop(*args, **kw, max_iters=1)
-            one_p = beam_loop_plain(*args, **kw, max_iters=1)
+            one_k = _each(torch, beam_loop, argsets, **kw, max_iters=1)
+            one_p = _each(torch, beam_loop_plain, argsets, **kw, max_iters=1)
             err = _check_one_iteration(torch, label, one_k[0], one_k[1], one_p[0], one_p[1])
             same = float((ki[:, :K] == pi[:, :K]).float().mean())
-            r_k, r_p = _recall(ki[:, :K].cpu().numpy(), gt), _recall(pi[:, :K].cpu().numpy(), gt)
+            r_k, r_p = _recall(ki[:, :K].cpu().numpy(), gt[:nq]), _recall(pi[:, :K].cpu().numpy(), gt[:nq])
             if same < 0.99 or abs(r_k - r_p) > 0.002:
                 raise AssertionError(
                     f"beam_loop {label}: top-10 ids equal {same:.4f} (< 0.99?), recall@10 "
@@ -1522,16 +1615,19 @@ def _hold_masked(torch, form, cfg, state, q, mask, cases, gt=None):
                     f"beam_loop {label}: not exactly equal to plain: ids differ in "
                     f"{int((ki != pi).sum())} slots, iterations {k_it} vs {p_it}")
             err, agree = 0.0, "exactly equal to plain"
+        if one_by_one:
+            extra.update(queries_held=nq, most_iters=k_it)
+        # the times, the bound and the plan are those of the first launch
         ms, ms_source = _device_ms(lambda: beam_loop(*args, **kw, max_iters=max_iters), 10,
                                    *_LOOP_KERNEL)
         plain_ms = _time_ms(lambda: beam_loop_plain(*args, **kw, max_iters=max_iters), 3, warm=1)
         iters_t = torch.empty((b,), dtype=torch.int32)
         bound_ms, bound_by, distinct, per_visit = _loop_bound(torch, args, fresh, adj,
-                                                              (kd, ki, iters_t), masked=True)
-        plan = _loop_fields(torch, form + "+mask", args, kw, max_iters, ms, k_it)
+                                                              (kd[:b], ki[:b], iters_t), masked=True)
+        plan = _loop_fields(torch, form + "+mask", args, kw, max_iters, ms, k_its[0])
         shapes.append(dict(
-            B=b, EF=efp, W=e * cfg.max_m0, E=e, KP=kp, Dp=dp, max_iters=max_iters, iters=k_it,
-            plain_iters=p_it, ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
+            B=b, EF=efp, W=e * cfg.max_m0, E=e, KP=kp, Dp=dp, max_iters=max_iters, iters=k_its[0],
+            plain_iters=p_its[0], ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by,
             distinct_bytes=distinct, per_visit_bytes=per_visit, max_abs_err=err, **extra, **plan,
         ))
@@ -1606,11 +1702,12 @@ def _fmt_split(parts):
     return ", ".join(f"{name} {ms:.2f}" for name, ms in parts.items())
 
 
-def _timed_insert(torch, table, rows):
-    """insert_many of ``rows`` (rowids 0..n-1) with the insert stages'
-    timers and a synchronised timer around the candidates stage's descent
-    and level-0 loop. Returns (seconds, {part: seconds}), the host's decode,
-    prepare and the flush's own work as the remainder."""
+def _timed_insert(torch, insert):
+    """``insert()`` (an insert_many, or SQL statements that insert) with the
+    insert stages' timers and a synchronised timer around the candidates
+    stage's descent and level-0 loop. Returns (seconds, {part: seconds}),
+    the host's decode, prepare and the flush's own work (and the statements'
+    handling) as the remainder; "flush" is the time inside VecTable.flush."""
     from tpuvec_torch.index import build
     from tpuvec_torch.utils import timing
 
@@ -1621,7 +1718,7 @@ def _timed_insert(torch, table, rows):
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        table.insert_many(rows, rowids=list(range(len(rows))))
+        insert()
         torch.cuda.synchronize()
         total = time.perf_counter() - t
     finally:
@@ -1644,9 +1741,9 @@ def _even_rowid(rowid, values):
 
 @contextlib.contextmanager
 def _loop_shapes_seen(torch):
-    """Inside the block, the shape (form, EF, W, E, KP, Dp) of every call
-    the level-0 search makes of the loop kernel's wrapper, gathered into
-    the set it yields (KP 0 when unmasked)."""
+    """Inside the block, the shape (form, EF, W, E, KP, Dp, B == 1) of every
+    call the level-0 search makes of the loop kernel's wrapper, gathered
+    into the set it yields (KP 0 when unmasked)."""
     from tpuvec_torch.index import search
 
     forms = {torch.float32: "f32", torch.int8: "int8", torch.int32: "words"}
@@ -1656,7 +1753,7 @@ def _loop_shapes_seen(torch):
                   res_i=None, **kw):
         masked, e = kw.get("node_mask") is not None, cand.shape[1]
         seen.add((forms[vectors.dtype] + ("+mask" if masked else ""), beam_d.shape[1],
-                  e * adj0.shape[1], e, res_d.shape[1] if masked else 0, q.shape[1]))
+                  e * adj0.shape[1], e, res_d.shape[1] if masked else 0, q.shape[1], q.shape[0] == 1))
         return wrapper(q, vectors, adj0, beam_d, beam_i, beam_x, cand, active, res_d, res_i, **kw)
 
     search.beam_loop = recording
@@ -1668,15 +1765,16 @@ def _loop_shapes_seen(torch):
 
 def _check_held(phase, seen, shapes):
     """Every shape the phase launched (``seen``) is among the shapes held
-    against the plain loop on its own graphs (``shapes``, form -> list)."""
-    held = {(form, s["EF"], s["W"], s["E"], s.get("KP", 0), s["Dp"])
+    against the plain loop on its own graphs (``shapes``, form -> list): a
+    launch of one query (B=1) held at B=1, a launch of more at B > 1."""
+    held = {(form, s["EF"], s["W"], s["E"], s.get("KP", 0), s["Dp"], s["B"] == 1)
             for form, rows in shapes.items() for s in rows}
     missing = seen - held
     if missing:
         raise AssertionError(f"table: phase {phase} launched the loop kernel at shapes no check "
                              f"held against the plain loop: {sorted(missing)}")
     _log(f"table: phase {phase} launched the loop kernel at {sorted(seen)} (form, EF, W, E, KP, "
-         "Dp), each held against the plain loop on its graph")
+         "Dp, B == 1), each held against the plain loop on its graph")
 
 
 def run_table_config5(torch, device):
@@ -1705,7 +1803,7 @@ def run_table_config5(torch, device):
 
     # 1. insert
     _reset_launches()
-    insert_s, split = _timed_insert(torch, t, rows)
+    insert_s, split = _timed_insert(torch, lambda: t.insert_many(rows, rowids=list(range(n))))
     del rows  # while the row dicts live, every garbage collection below walks them
     gc.collect()
     flush_launches, _ = _launches()
@@ -1835,9 +1933,11 @@ def check_table_loops(torch, device, c5):
     against beam_loop_plain at the shapes config 5's default HnswParams()
     give it: search (256 queries at ef_search=200: EF=256, E=1, W=64),
     construction (the same rows at ef_construction=400 with the build's
-    iteration budget: EF=512, E=2, W=128) and the predicate query's masked
-    search under the table's own 50% mask (k=10: KP=32, EF=256, W=64), at
-    phase 3b's tolerances. Returns the shapes by form."""
+    iteration budget: EF=512, E=2, W=128; at B=256 and, as the first
+    batches of an insert into an empty graph launch it, at B=1) and the
+    predicate query's masked search under the table's own 50% mask (k=10:
+    KP=32, EF=256, W=64), at phase 3b's tolerances. Returns the shapes by
+    form."""
     from tpuvec_torch.index.bruteforce import bruteforce_knn
     from tpuvec_torch.index.build import _build_iter_budget
     from tpuvec_torch.index.graph import prepare_vectors
@@ -1856,7 +1956,8 @@ def check_table_loops(torch, device, c5):
     even = torch.from_numpy(t._filter_mask(predicate=_even_rowid)).to(device)
     gt_even = bruteforce_knn(qp, state.vectors, even, metric=cfg.graph_metric, k=K,
                              normalized=True)[1].cpu().numpy()
-    return {"f32": _hold_loop(torch, cfg, state, cases),
+    return {"f32": _hold_loop(torch, cfg, state, cases) + _hold_loop(torch, cfg, state, cases[1:],
+                                                                      one_by_one=B1_QUERIES),
             "f32+mask": _hold_masked(torch, "f32", cfg, state, qp, even,
                                      [(cfg.ef_search, K, default_max_iters(cfg.ef_search, 1))],
                                      gt_even)}
@@ -1931,7 +2032,8 @@ def run_table_config4(torch, device, n):
 def check_table4_loops(torch, device, c4t):
     """Phase 8b's holds, on the binary table's graph after the path: the
     words form against beam_loop_plain at the flush's construction shape
-    (1024 held-out rows, EF=256, E=2, W=64) and the reads' search shape
+    (1024 held-out rows, EF=256, E=2, W=64; at B=1 too, as the first
+    batches of the insert launch it) and the reads' search shape
     (k=100 at ef_search=128: EF=128, E=1, W=32), and the words+mask form
     under the table's own filters={"bucket": 5} mask at the filtered
     read's shape (k_out=100: KP=256, EF=128), each exactly equal. Returns
@@ -1949,10 +2051,351 @@ def check_table4_loops(torch, device, c4t):
     efc = max(cfg.ef_construction, cfg.max_m0)
     bucket5 = torch.from_numpy(t._filter_mask(filters={"bucket": 5})).to(device)
     cases = [(qs, ef, 1, default_max_iters(ef, 1)), (qc, efc, 2, _build_iter_budget(cfg.cap, efc, 2))]
-    return {"words": _hold_quantized(torch, "words", cfg, state,
-                                     ("Hamming", cfg.graph_metric, cfg.normalized, 0.0), cases),
+    hamming = ("Hamming", cfg.graph_metric, cfg.normalized, 0.0)
+    return {"words": _hold_quantized(torch, "words", cfg, state, hamming, cases)
+            + _hold_quantized(torch, "words", cfg, state, hamming, cases[1:], one_by_one=B1_QUERIES),
             "words+mask": _hold_masked(torch, "words", cfg, state, qs, bucket5,
                                        [(ef, coarse_k, default_max_iters(ef, 1))])}
+
+
+def _sql_label(rowid):
+    """Phase 10's label column: 'l' || (rowid % 10)."""
+    return f"l{rowid % 10}"
+
+
+def _statements(torch, db, sql, params_list, form=None):
+    """Each statement alone after one warm-up, timed on the host clock (its
+    rows fetched, so the device work is done). With ``form`` each must
+    launch that form of the loop kernel. Returns (rows of each, ms of each)."""
+    from tpuvec_torch.ops.beam import beam_loop
+
+    rows, ms, none = [], [], 0
+    db.execute(sql, list(params_list[0])).fetchall()  # warm-up
+    torch.cuda.synchronize()
+    for params in params_list:
+        before = beam_loop.form_launches[form] if form else 0
+        t = time.perf_counter()
+        rows.append(db.execute(sql, list(params)).fetchall())
+        ms.append((time.perf_counter() - t) * 1e3)
+        none += bool(form) and beam_loop.form_launches[form] == before
+    if none:
+        raise AssertionError(f"sql: {none} of {len(params_list)} statements {sql[:48]!r}... launched "
+                             f"no {form} loop kernel")
+    return rows, ms
+
+
+class _PathLaunches:
+    """The loop kernel's launches that one path's own calls make: the
+    counts are read into a running total before work beside the path (what
+    it is held against) and set to 0 after it."""
+
+    def __init__(self):
+        _reset_launches()
+        self.total, self.beam_update = {}, 0
+
+    def read(self):
+        """(the path's launches so far by form, beam_update's)."""
+        launches, bu = _launches()
+        return {f: self.total.get(f, 0) + c for f, c in launches.items()}, self.beam_update + bu
+
+    @contextlib.contextmanager
+    def aside(self):
+        self.total, self.beam_update = self.read()
+        try:
+            yield
+        finally:
+            _reset_launches()
+
+
+def _latency(ms):
+    return dict(p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+                mean_ms=float(np.mean(ms)), statements_per_s=len(ms) / (sum(ms) / 1e3))
+
+
+def _sql_ids(rows):
+    """Statement rows (rowid, distance, ...) as [B, K] rowids, -1 past the rows found."""
+    ids = np.full((len(rows), K), -1, dtype=np.int64)
+    for b, r in enumerate(rows):
+        ids[b, : len(r)] = [x[0] for x in r]
+    return ids
+
+
+def _same_as_table(label, rows, want):
+    """Statement rows equal, bitwise, to VecTable results."""
+    for j, (r, w) in enumerate(zip(rows, want)):
+        if [(x[0], x[1]) for x in r] != [(x.rowid, x.distance) for x in w]:
+            raise AssertionError(f"sql: {label}: statement {j} gives {r[:3]}..., VecTable.knn "
+                                 f"{[(x.rowid, x.distance) for x in w][:3]}...")
+
+
+def run_sql(torch, device, run):
+    """Phase 10 (the module docstring): the vec0 SQL surface at --n x 768 on
+    the card. Returns the {"sql": ...} figures, the loop kernel's launches
+    that SQL statements made (not those of the VecTable calls they are
+    held against) and what check_sql_loops holds."""
+    from tpuvec_torch.sql import connect
+    from tpuvec_torch.sql.ddl import parse_create_vtab
+    from tpuvec_torch.store import VecTable
+
+    n, data = run["n"], run["data"]
+    x, q = data[:n], data[n : n + NQ]
+    qb = [v.tobytes() for v in q]
+    out = dict(rows=n, dims=D, ddl=SQL_DDL, queries=NQ)
+    db = connect(device=device)
+    db.execute(SQL_DDL)
+    t = db.table("docs")
+    _log(f"sql: {SQL_DDL} on connect(device={device!r}): {t.device}")
+
+    # 1. load: BEGIN, executemany of every row, COMMIT
+    params = [[i + 1, x[i].tobytes(), _sql_label(i + 1)] for i in range(n)]
+    insert = "INSERT INTO docs(rowid, emb, label) VALUES (?, ?, ?)"
+    sql_launches = _PathLaunches()
+
+    def load():
+        db.execute("BEGIN")
+        db.executemany(insert, params)
+        db.execute("COMMIT")
+
+    sql_s, split = _timed_insert(torch, load)
+    flush_launches, _ = sql_launches.read()
+    del params
+    if len(t) != n or int(t.vector_cols["emb"].state.count) != n or flush_launches["f32"] == 0:
+        raise AssertionError(f"sql: load: {len(t)} rows, loop launches {flush_launches}")
+    statements_s = sql_s - split["flush"]
+    rows = [{"emb": x[i], "label": _sql_label(i + 1)} for i in range(n)]
+    with sql_launches.aside():
+        plain = VecTable("docs", parse_create_vtab(SQL_DDL)[1], device=device)
+        table_s, table_split = _timed_insert(torch, lambda: plain.insert_many(rows, rowids=list(range(1, n + 1))))
+    del rows, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["insert"] = dict(sql_vec_s=n / sql_s, sql_s=sql_s, statements_s=statements_s, flush_s=split["flush"],
+                         split_s=split, vectable_insert_many_vec_s=n / table_s, vectable_insert_many_s=table_s,
+                         vectable_split_s=table_split)
+    _log(f"sql: BEGIN; executemany of {n} INSERTs; COMMIT in {sql_s:.2f}s = {n / sql_s:.0f} vec/s: the "
+         f"statements' handling {statements_s:.2f}s, the flush {split['flush']:.2f}s; split (s): "
+         + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+         + f"; VecTable.insert_many of the same rows {table_s:.2f}s = {n / table_s:.0f} vec/s")
+
+    # 2. KNN statements, one query each, at the default ef and at ef = ?
+    knn = "SELECT rowid, distance FROM docs WHERE emb MATCH ? AND k = 10"
+    with sql_launches.aside():
+        gt = _result_arrays(t.knn_many("emb", list(q), k=K, exact=True))[0]
+    out["knn"] = []
+    before = None
+    for ef in SQL_EFS:
+        sql = knn + ("" if ef is None else " AND ef = ?")
+        plist = [[b] + ([] if ef is None else [ef]) for b in qb]
+        res, ms = _statements(torch, db, sql, plist, form="f32")
+        with sql_launches.aside():
+            want = [t.knn("emb", b, k=K, ef=ef) for b in qb]
+        _same_as_table(f"ef={ef}", res, want)
+        recall = _recall(_sql_ids(res), gt)
+        sample = plist[:SQL_SPLIT_N]
+        total, parts = _table_split(torch, lambda: [db.execute(sql, list(p)).fetchall() for p in sample])
+        pt = dict(ef=ef or t.vector_cols["emb"].params.ef_search, recall=recall, **_latency(ms),
+                  split_ms={k_: v / len(sample) for k_, v in parts.items()},
+                  split_total_ms=total / len(sample), split_statements=len(sample))
+        out["knn"].append(pt)
+        _log(f"sql: {NQ} KNN statements at ef={pt['ef']}{' (default)' if ef is None else ''}: recall@10 "
+             f"{recall:.4f} against knn_many(exact=True); p50 {pt['p50_ms']:.3f} ms, p99 "
+             f"{pt['p99_ms']:.3f} ms, {pt['statements_per_s']:.0f} statements/s; bitwise equal to "
+             f"VecTable.knn; a statement's split (ms, synchronised timers, over {len(sample)}): "
+             + _fmt_split(pt["split_ms"]))
+        if ef is None:
+            before = res
+            if recall < 0.95:
+                raise AssertionError(f"sql: recall@10 {recall:.4f} < 0.95 at the default ef")
+
+    # 3. under a metadata filter (10% of rows)
+    filt = "SELECT rowid, distance FROM docs WHERE emb MATCH ? AND label = ? AND k = 10"
+    plist = [[b, _sql_label(j)] for j, b in enumerate(qb)]
+    res, ms = _statements(torch, db, filt, plist, form="f32+mask")
+    gt_f = np.full((NQ, K), -1, dtype=np.int64)
+    with sql_launches.aside():
+        for lab in range(10):
+            js = list(range(lab, NQ, 10))
+            gt_f[js] = _result_arrays(t.knn_many("emb", [q[j] for j in js], k=K, exact=True,
+                                                 filters={"label": _sql_label(lab)}))[0]
+        want = [t.knn("emb", b, k=K, filters={"label": lab}) for b, lab in plist]
+    ids = _sql_ids(res)
+    if any(r >= 0 and r % 10 != j % 10 for j, row in enumerate(ids) for r in row):
+        raise AssertionError("sql: a filtered statement returned a row of another label")
+    _same_as_table("label filter", res, want)
+    recall_f = _recall(ids, gt_f)
+    out["filtered"] = dict(recall=recall_f, **_latency(ms))
+    _log(f"sql: {NQ} KNN statements AND label = ? (10%): recall@10 {recall_f:.4f} against the exact "
+         f"masked scan, every rowid carries its label, p50 {out['filtered']['p50_ms']:.3f} ms, p99 "
+         f"{out['filtered']['p99_ms']:.3f} ms")
+    if recall_f < 0.90:
+        raise AssertionError(f"sql: filtered recall@10 {recall_f:.4f} < 0.90")
+
+    # 4. composed statements: a KNN join, a CTE over a MATCH, a full-table aggregate
+    db.execute("CREATE TABLE meta(id INTEGER PRIMARY KEY, title TEXT)")
+    db.executemany("INSERT INTO meta VALUES (?, ?)", [[i, f"doc{i}"] for i in range(1, n + 1)])
+    join = ("SELECT docs.rowid, docs.distance, m.title FROM docs JOIN meta m ON m.id = docs.rowid "
+            "WHERE docs.emb MATCH ? AND k = 10 ORDER BY docs.distance")
+    cte = ("WITH near AS (SELECT rowid AS r, distance FROM docs WHERE emb MATCH ? AND k = 10) "
+           "SELECT r, distance FROM near ORDER BY distance")
+    composed = {}
+    for name, sql in (("knn join", join), ("cte over match", cte)):
+        res, ms = _statements(torch, db, sql, [[b] for b in qb[:16]], form="f32")
+        for j, r in enumerate(res):
+            if [(a[0], a[1]) for a in r] != [(a[0], a[1]) for a in before[j]]:
+                raise AssertionError(f"sql: {name}, query {j}: {r[:3]}... not the planner's "
+                                     f"{before[j][:3]}...")
+            if name == "knn join" and any(a[2] != f"doc{a[0]}" for a in r):
+                raise AssertionError(f"sql: knn join, query {j}: a title of another row")
+        composed[name] = _latency(ms)
+    cut = min(n, SQL_MIRROR_N)
+    db.execute(SQL_DDL.replace(" docs ", " docs_cut "))
+    db.executemany("INSERT INTO docs_cut(rowid, emb, label) VALUES (?, ?, ?)",
+                   [[i + 1, x[i].tobytes(), _sql_label(i + 1)] for i in range(cut)])
+    group = "SELECT label, COUNT(*) FROM {} GROUP BY label ORDER BY label"
+    t0 = time.perf_counter()
+    counts = db.execute(group.format("docs_cut")).fetchall()
+    cut_s = time.perf_counter() - t0
+    want_counts = sorted((_sql_label(r), c) for r, c in
+                         zip(*np.unique(np.arange(1, cut + 1) % 10, return_counts=True)))
+    if counts != [(lab, int(c)) for lab, c in want_counts]:
+        raise AssertionError(f"sql: {group.format('docs_cut')}: {counts}")
+    predicted_s = cut_s / cut * n
+    full = dict(statement=group.format("docs_cut"), rows=cut, s=cut_s, us_per_row=cut_s / cut * 1e6,
+                predicted_s_at_n=predicted_s)
+    if predicted_s <= 60.0:  # cheap enough: the full table as well
+        t0 = time.perf_counter()
+        counts = db.execute(group.format("docs")).fetchall()
+        full.update(full_table_s=time.perf_counter() - t0, full_table_counts=counts)
+    else:
+        full["reduced"] = f"the first {cut} of {n} rows: {predicted_s:.0f} s predicted at {n} (> 60 s)"
+    db.execute("DROP TABLE docs_cut")
+    out["composed"] = dict(**composed, full_table=full)
+    _log(f"sql: a KNN join with a plain SQLite table and a CTE over a MATCH give the planner's rowids "
+         f"and distances (16 queries each; p50 {composed['knn join']['p50_ms']:.2f} / "
+         f"{composed['cte over match']['p50_ms']:.2f} ms); {full['statement']} mirrors {cut} rows in "
+         f"{cut_s:.2f}s ({full['us_per_row']:.0f} us a row, {predicted_s:.1f} s predicted at {n} rows"
+         + (f"; the full table took {full['full_table_s']:.2f}s" if "full_table_s" in full else
+            "; the full table not run") + ")")
+
+    # 5. writes: deletes rolled back, deletes committed, updates, integrity, rebuild
+    dels = list(range(10, n + 1, 10))
+    delete = f"DELETE FROM docs WHERE rowid IN ({', '.join(map(str, dels))})"
+    db.execute("BEGIN")
+    t0 = time.perf_counter()
+    db.execute(delete)
+    torch.cuda.synchronize()
+    txn_delete_s = time.perf_counter() - t0
+    if len(t) != n - len(dels):
+        raise AssertionError(f"sql: {len(t)} rows after the deletes in the transaction")
+    t0 = time.perf_counter()
+    db.execute("ROLLBACK")
+    torch.cuda.synchronize()
+    rollback_s = time.perf_counter() - t0
+    after, _ = _statements(torch, db, knn, [[b] for b in qb], form="f32")
+    differ = [j for j, (a, b) in enumerate(zip(after, before)) if a != b]
+    if len(t) != n or differ:
+        raise AssertionError(f"sql: after ROLLBACK {len(t)} rows (want {n}); {len(differ)} of {NQ} "
+                             f"statements answer otherwise than before the transaction: {differ[:8]}")
+    db.execute("BEGIN")
+    db.execute(delete)
+    t0 = time.perf_counter()
+    db.execute("COMMIT")
+    commit_s = time.perf_counter() - t0
+    if len(t) != n - len(dels):
+        raise AssertionError(f"sql: {len(t)} rows after the committed deletes")
+    ups = [r for r in range(1, n + 1) if r % 10][:100]
+    newv = data[n + NQ : n + NQ + len(ups)]
+    f32_before = sql_launches.read()[0]["f32"]
+    t0 = time.perf_counter()
+    for r, v in zip(ups, newv):
+        db.execute("UPDATE docs SET emb = ? WHERE rowid = ?", [v.tobytes(), r])
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    update_launches = sql_launches.read()[0]["f32"] - f32_before
+    for r, v in zip(ups, newv):
+        got = np.asarray(json.loads(db.execute("SELECT emb FROM docs WHERE rowid = ?", [r]).fetchone()[0]),
+                         dtype=np.float32)
+        if not np.array_equal(got, v):
+            raise AssertionError(f"sql: rowid {r} does not read back its updated vector")
+    problems = db.integrity_check("docs")
+    if problems:
+        raise AssertionError(f"sql: integrity_check: {problems}")
+    vc = t.vector_cols["emb"]
+    graph = dict(cfg=vc.config, state=vc.state,
+                 mask=torch.from_numpy(t._filter_mask(filters={"label": _sql_label(3)})).to(device))
+    f32_before = sql_launches.read()[0]["f32"]
+    t0 = time.perf_counter()
+    ok = db.execute("SELECT vec_rebuild_hnsw('docs', 'emb', 16, 200)").fetchall()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    rebuild_launches = sql_launches.read()[0]["f32"] - f32_before
+    with sql_launches.aside():
+        gt2 = _result_arrays(t.knn_many("emb", list(q), k=K, exact=True))[0]
+    res, ms = _statements(torch, db, knn, [[b] for b in qb], form="f32")
+    recall2 = _recall(_sql_ids(res), gt2)
+    if ok != [("ok",)] or recall2 < 0.95 or db.integrity_check("docs"):
+        raise AssertionError(f"sql: vec_rebuild_hnsw {ok}: recall@10 {recall2:.4f} (< 0.95?), "
+                             f"integrity_check {db.integrity_check('docs')}")
+    out["writes"] = dict(txn_delete_rows=len(dels), txn_delete_s=txn_delete_s, rollback_s=rollback_s,
+                         rollback_restored=True, answers_equal_after_rollback=True, commit_s=commit_s,
+                         updates=len(ups), update_s=update_s, integrity_check=[], rebuild_s=rebuild_s,
+                         recall_after_rebuild=recall2, after_rebuild=_latency(ms))
+    launches, bu = sql_launches.read()
+    if (update_launches < len(ups) or rebuild_launches == 0 or bu
+            or any(launches[f] for f in launches if f not in ("f32", "f32+mask"))):
+        raise AssertionError(f"sql: loop kernel launches {launches} ({update_launches} in the "
+                             f"{len(ups)} UPDATEs, {rebuild_launches} in the rebuild), beam_update {bu}")
+    out["launches"] = launches
+    _log(f"sql: DELETE of {len(dels)} rowids in a transaction {txn_delete_s:.2f}s, ROLLBACK "
+         f"{rollback_s:.2f}s: the count came back and the {NQ} statements answer as before; again "
+         f"committed ({commit_s:.2f}s); {len(ups)} UPDATEs by rowid in {update_s:.2f}s, each reads "
+         f"back; integrity_check() == []; vec_rebuild_hnsw('docs', 'emb', 16, 200) in {rebuild_s:.2f}s, "
+         f"then recall@10 {recall2:.4f}; every KNN statement launched the loop kernel; its launches "
+         f"by SQL statements in phase 10: {launches} (the load's flush {flush_launches['f32']}, the "
+         f"UPDATEs' {update_launches}, the rebuild's {rebuild_launches})")
+    return dict(sql=out, launches=launches, db=db, q=q, graph=graph)
+
+
+def check_sql_loops(torch, device, sq):
+    """Phase 10's holds: every loop-kernel shape the SQL path launched,
+    against beam_loop_plain to phase 3b's tolerances, on the SQL table's
+    graph before vec_rebuild_hnsw (M=32, ef_construction=400) and after it
+    (M=16, ef_construction=200): the statements' B=1 search shapes at every
+    ef phase 10 ran (EF 16 / 32 / 64 / 256, W=64), f32+mask at B=1 under
+    the label = 'l3' mask (KP=32, EF=256), the flush's construction shape
+    (EF=512, E=2, W=128) at B=1 and at B=256, and, after the rebuild, its
+    search shape (EF=256, W=32) at B=1 and its construction shape (EF=256,
+    E=2, W=64) at B=1 and B=256. B=1 runs B1_QUERIES queries, one a launch.
+    Returns the shapes by form."""
+    from tpuvec_torch.index.bruteforce import bruteforce_knn
+    from tpuvec_torch.index.build import _build_iter_budget
+    from tpuvec_torch.index.graph import prepare_vectors
+    from tpuvec_torch.index.search import default_max_iters
+
+    t = sq["db"].table("docs")
+    out = {"f32": [], "f32+mask": []}
+    vc = t.vector_cols["emb"]
+    for when, cfg, state, mask in (("before vec_rebuild_hnsw", sq["graph"]["cfg"], sq["graph"]["state"],
+                                    sq["graph"]["mask"]),
+                                   ("after vec_rebuild_hnsw", vc.config, vc.state, None)):
+        qp = prepare_vectors(cfg, sq["q"], device=device)
+        valid = state.levels >= 0
+        gt = bruteforce_knn(qp, state.vectors, valid, metric=cfg.graph_metric, k=K,
+                            normalized=True)[1].cpu().numpy()
+        efc = max(cfg.ef_construction, cfg.max_m0)
+        build = (qp, gt, efc, 2, _build_iter_budget(cfg.cap, efc, 2))
+        efs = [cfg.ef_search] + ([ef for ef in SQL_EFS if ef] if mask is not None else [])
+        search = [(qp, gt, max(ef, K), 1, default_max_iters(max(ef, K), 1)) for ef in efs]
+        _log(f"kernels: phase 10's shapes on the SQL table's graph {when}")
+        out["f32"] += _hold_loop(torch, cfg, state, search + [build], one_by_one=B1_QUERIES)
+        out["f32"] += _hold_loop(torch, cfg, state, [build])
+        if mask is not None:
+            gt_m = bruteforce_knn(qp, state.vectors, mask & valid, metric=cfg.graph_metric, k=K,
+                                  normalized=True)[1].cpu().numpy()
+            out["f32+mask"] += _hold_masked(torch, "f32", cfg, state, qp, mask,
+                                            [(cfg.ef_search, K, default_max_iters(cfg.ef_search, 1))],
+                                            gt_m, one_by_one=B1_QUERIES)
+    return out
 
 
 # Phase 9b / 9c's reader: a second OS process that imports only the port,
@@ -2384,6 +2827,17 @@ def main() -> int:
     _check_held("8b", seen, c4_shapes)
     del c4t["table"]
     _log(f"table: phase 8 took {time.time() - t8:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t10 = time.time()
+    with _loop_shapes_seen(torch) as seen:
+        sq = run_sql(torch, device, run)
+    sql_shapes = check_sql_loops(torch, device, sq)
+    _check_held("10", seen, sql_shapes)
+    sq["db"].close()
+    del sq["db"], sq["graph"]
+    sq["sql"]["seconds"] = time.time() - t10
+    _log(f"sql: phase 10 took {sq['sql']['seconds']:.1f}s")
 
     def on(phase, shapes):  # each shape with the phase whose graph held it
         return [dict(s, on=phase) for s in shapes]
@@ -2416,8 +2870,9 @@ def main() -> int:
         entry("beam_search_level0[f32]", loop_src,
               {"phase 4": run["launches"]["f32"], "phase 8a": c5["launches"]["f32"],
                "phase 9": snap["config5_tvstore"]["launches"]["f32"],
-               "phase 9c": snap["cut"]["launches"]["f32"]},
-              on("phase 3b", loop_shapes) + on("phase 8a", c5_shapes["f32"]), loop_shapes[-1]),
+               "phase 9c": snap["cut"]["launches"]["f32"], "phase 10": sq["launches"]["f32"]},
+              on("phase 3b", loop_shapes) + on("phase 8a", c5_shapes["f32"])
+              + on("phase 10", sql_shapes["f32"]), loop_shapes[-1]),
         entry("beam_search_level0[int8]", loop_src, {"phase 6": qruns["int8"]["launches"]},
               on("phase 3c", qshapes["int8"]), qshapes["int8"][1]),
         entry("beam_search_level0[words]", loop_src,
@@ -2431,12 +2886,12 @@ def main() -> int:
     masked_paths = {
         "f32": {"phase 7": filt["launches"]["f32+mask"], "phase 8a": c5["launches"]["f32+mask"],
                 "phase 9": snap["config5_tvstore"]["launches"]["f32+mask"],
-                "phase 9c": snap["cut"]["launches"]["f32+mask"]},
+                "phase 9c": snap["cut"]["launches"]["f32+mask"], "phase 10": sq["launches"]["f32+mask"]},
         "int8": {"phase 7": filt["launches"]["int8+mask"]},
         "words": {"phase 7": filt["launches"]["words+mask"],
                   "phase 8b": c4t["launches"]["words+mask"]},
     }
-    table_masked = {"f32": on("phase 8a", c5_shapes["f32+mask"]),
+    table_masked = {"f32": on("phase 8a", c5_shapes["f32+mask"]) + on("phase 10", sql_shapes["f32+mask"]),
                     "words": on("phase 8b", c4_shapes["words+mask"])}
     kernels_line += [
         entry(f"beam_search_level0[{form}+mask]", masked_src, paths,
@@ -2444,6 +2899,7 @@ def main() -> int:
         for form, paths in masked_paths.items()
     ]
     _log(json.dumps({"snapshot": snap}))
+    _log(json.dumps({"sql": sq["sql"]}))
     _log(card)
     _log(json.dumps({"kernels": kernels_line}))
     _log(json.dumps({
