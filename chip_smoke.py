@@ -185,6 +185,37 @@ Phases, one line each; any failure exits non-zero:
    (B=1) at B=1 (16 queries, one a launch) and a launch of more at
    B=256, and the phase fails if a shape it launched is not held; it
    prints a {"sql": ...} line with those figures;
+11. the mesh on the card (tpuvec_torch/parallel/, after phase 10): 8
+   logical shards, all on cuda:0, as the JAX package's 8-device mesh
+   (MULTICHIP_r0*.json: n_devices 8):
+   11a. ShardedHnsw over phase 4's --n x 768 rows and parameters:
+   add(batch=256) (vec/s beside phase 4's single graph), phase 4's 256
+   queries at ef 24/32/48/64 (recall@10 against the exact scan, QPS, a
+   batch split into the shards' descents, their level-0 loops and the
+   merge; the merge alone by CUDA events), and search(partition=) on a
+   partitioned copy of the first 20,000 rows under 16 tenants, 16
+   queries a tenant (the in-beam filtered search on the tenant's shard:
+   f32+mask must launch; recall against each tenant's exact scan, purity);
+   11b. BASELINE config 5 (phase 8a's data, not cut) through
+   VecTable(mesh=make_mesh(8)), initial_cap=262,144: insert_many (vec/s
+   beside phase 8a's, the growths of the mesh and each shard's rows), 64
+   single-tenant knn(partition=) (purity 1.0) beside the index's one-shard
+   search(partition=) (the same rows), knn_many of 256 through the merged
+   HNSW search (recall@10 >= 0.95 against knn_many(exact=True), the
+   sharded exact scan, timed too) and under a 50% predicate, delete_many
+   of every 10th rowid, update_many of 256 rows, integrity_check() == [],
+   then a tvstore snapshot saved and loaded on the card (every shard's
+   graph and allocation state equal, every route's answers bitwise
+   equal); 11c. connect(mesh=make_mesh(8)) with
+   tests/test_table_mesh.py::test_mesh_sql_surface's DDL at config 5's
+   width (emb float[384] hnsw(m=4, ef_construction=16), tenant text
+   partition key, capacity=2048) over the first 20,000 rows of config 5
+   and its tenants: the load through BEGIN / executemany / COMMIT, then
+   64 of the 256 queries as KNN statements without and with `tenant = ?`
+   (p50 / p99 ms, recall@10), each equal to the table's knn. The loop kernel must
+   launch (f32 and f32+mask), every shape the phase launched is held
+   against beam_loop_plain on one shard's graph (B=1 at B=1), and a
+   {"mesh": ...} line holds the figures;
 
 Device times per launch are torch.profiler's; where its trace kept no
 launch of a kernel, they are CUDA events around the launches, and the
@@ -204,8 +235,8 @@ also builds the loop kernel from another beam_update.cu (an earlier
 commit's, or a variant, with extra nvcc FLAGs) and times it beside this
 tree's at every held shape, in turns (other, this, this, other; CUDA
 events), under "against" in the shape's numbers.
-The last lines are the {"snapshot": ...} and {"sql": ...} lines, the card's name and power
-limit, a JSON line with every kernel's numbers (its launches on the main
+The last lines are the {"snapshot": ...}, {"sql": ...} and {"mesh": ...} lines, the card's
+name and power limit, a JSON line with every kernel's numbers (its launches on the main
 paths in all, and by phase in "launches_by_path") and the JSON line
 {"ok": true, "device": {...}}.
 """
@@ -254,6 +285,16 @@ SQL_DDL = ("CREATE VIRTUAL TABLE docs USING vec0(emb float[768] hnsw(M=32, ef_co
 SQL_EFS = (None, 16, 32, 64)
 SQL_MIRROR_N = 10_000
 SQL_SPLIT_N = 32
+# phase 11: the mesh's shards (the JAX package's mesh: 8 devices); 11a's
+# efs, and its partitioned copy (the first rows of phase 4's data, one
+# tenant a row in turn); 11c: tests/test_table_mesh.py's SQL DDL at config
+# 5's width over the first rows of config 5's data
+MESH_S = 8
+MESH_EFS = (24, 32, 48, 64)
+MESH_PART_N, MESH_PART_TENANTS = 20_000, 16
+MESH_SQL_N, MESH_SQL_Q = 20_000, 64
+MESH_SQL_DDL = ("CREATE VIRTUAL TABLE mt USING vec0(emb float[384] hnsw(m=4, ef_construction=16), "
+                "tenant text partition key, capacity=2048)")
 # the queries a B=1 shape (one query a launch: a SQL statement, or the first
 # batches of a table's doubling insert schedule) is held on, one a launch
 B1_QUERIES = 16
@@ -537,7 +578,7 @@ def run_main_path(torch, device, n):
     _log(f"main: best {best['qps']:.0f} QPS at recall@10 {best['recall']:.4f} (ef={best['ef']}); "
          f"kernel launches: build {build_launches}, search {search_launches}")
     return dict(launches=launches, cfg=cfg, xp=xp, state=state, q=rep_qs[0], ef=best["ef"],
-                data=data, n=n, gt=gt, qp=qp, rep_qs=rep_qs)
+                data=data, n=n, gt=gt, qp=qp, rep_qs=rep_qs, build_s=build_s, sweep=sweep)
 
 
 def _recall(ids, gt) -> float:
@@ -1670,17 +1711,20 @@ def _timed(torch, fn, reps):
 
 
 def _table_split(torch, fn):
-    """One call of ``fn`` (a table read) with a synchronised timer around
-    each layer under VecTable: the descent and the level-0 loop of the HNSW
-    search, the exact scan, the rerank. Returns (total ms, {layer: ms}),
-    the host's decode, prepare and collect as the remainder."""
+    """One call of ``fn`` (a table read, or a sharded index's) with a
+    synchronised timer around each layer under it: the descent and the
+    level-0 loop of the HNSW search, the exact scan, the rerank, the merge
+    over shards. Returns (total ms, {layer: ms}), the host's decode,
+    prepare and collect as the remainder."""
     from tpuvec_torch.index import search
+    from tpuvec_torch.parallel import sharding
     from tpuvec_torch.store import table as table_mod
 
     spent = {}
     patched = [(search, _timers(torch, search, ["descend_to_level1", "beam_search_level0"], spent)),
                (table_mod, _timers(torch, table_mod, ["bruteforce_knn_internal", "rerank_topk",
-                                                       "expand_rerank_topk"], spent))]
+                                                       "expand_rerank_topk"], spent)),
+               (sharding, _timers(torch, sharding, ["bruteforce_knn_internal", "_merge_shards"], spent))]
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1692,7 +1736,7 @@ def _table_split(torch, fn):
             _restore(module, originals)
     names = {"descend_to_level1": "descent", "beam_search_level0": "level-0 loop",
              "bruteforce_knn_internal": "exact scan", "rerank_topk": "rerank",
-             "expand_rerank_topk": "expansion rerank"}
+             "expand_rerank_topk": "expansion rerank", "_merge_shards": "merge"}
     parts = {names[name]: sec * 1e3 for name, sec in spent.items()}
     parts["host"] = total - sum(parts.values())
     return total, parts
@@ -1777,23 +1821,32 @@ def _check_held(phase, seen, shapes):
          "Dp, B == 1), each held against the plain loop on its graph")
 
 
+def _config5_data():
+    """Config 5's rows, 64 queries and tenants as the source draws them,
+    and 256 queries and 256 update rows more, on the corpus's manifold."""
+    from tpuvec_torch.utils.data import synthetic_embeddings
+
+    data = synthetic_embeddings(C5_N + 64, C5_D, seed=5)
+    parts = np.random.default_rng(7).integers(0, C5_TENANTS, C5_N)
+    return dict(x=data[:C5_N], q=data[C5_N:], parts=parts,
+                per_tenant=np.bincount(parts, minlength=C5_TENANTS),
+                q256=synthetic_embeddings(256, C5_D, seed=6, structure_seed=5),
+                upd=synthetic_embeddings(256, C5_D, seed=8, structure_seed=5))
+
+
 def run_table_config5(torch, device):
     """Phase 8a: BASELINE config 5 through VecTable at its source's full
-    size (the module docstring). Returns the table, the queries and the
-    loop kernel's launches on the path, for the checks after it."""
+    size (the module docstring). Returns the table, the queries, the data
+    (phase 11 runs it again on a mesh) and the loop kernel's launches on
+    the path, for the checks after it."""
     from tpuvec_torch.store import ColumnSpec, VecTable
     from tpuvec_torch.types import DistanceMetric
-    from tpuvec_torch.utils.data import synthetic_embeddings
 
     n, d = C5_N, C5_D
     t0 = time.time()
-    data = synthetic_embeddings(n + 64, d, seed=5)
-    x, q = data[:n], data[n:]
-    parts = np.random.default_rng(7).integers(0, C5_TENANTS, n)
-    per_tenant = np.bincount(parts, minlength=C5_TENANTS)
-    # 256 queries and 256 update rows more, on the corpus's manifold
-    q256 = synthetic_embeddings(256, d, seed=6, structure_seed=5)
-    upd = synthetic_embeddings(256, d, seed=8, structure_seed=5)
+    c5data = _config5_data()
+    x, q, parts, per_tenant = c5data["x"], c5data["q"], c5data["parts"], c5data["per_tenant"]
+    q256, upd = c5data["q256"], c5data["upd"]
     rows = [{"e": x[i], "tenant": int(parts[i])} for i in range(n)]
     cols = [ColumnSpec.vector("e", d, metric=DistanceMetric.COSINE), ColumnSpec.partition_key("tenant")]
     t = VecTable("bench5", cols, initial_cap=n, device=device)
@@ -1925,7 +1978,7 @@ def run_table_config5(torch, device):
          f"in phase 8a: {launches} (the flush {flush_launches['f32']})")
     return dict(table=t, q256=q256, launches=launches, insert_s=insert_s, split=split, points=points,
                 single_qps=single_qps, batch_qps=batch_qps, del_s=del_s, upd_s=upd_s,
-                rebuild_s=rebuild_s, head=x[:C9_N].copy(), head_parts=parts[:C9_N].copy())
+                rebuild_s=rebuild_s, head=x[:C9_N].copy(), head_parts=parts[:C9_N].copy(), data=c5data)
 
 
 def check_table_loops(torch, device, c5):
@@ -2496,8 +2549,9 @@ def _decoded_scalars(table, cap):
 def _hold_loaded(torch, label, got, want):
     """A loaded table equals the table it was saved from: host state
     (rowid map, next slot, free slots, max rowid, live slots), each slot's
-    scalar values, the raw originals, every graph field, and
-    integrity_check() == []."""
+    scalar values, the raw originals, every graph field (of every shard of
+    a mesh-backed column, with the shards' allocation state and tenants),
+    and integrity_check() == []."""
     problems = [name for name in ("_rowid_to_slot", "_slot_to_rowid", "_next_slot", "_free_slots",
                                   "_max_rowid") if getattr(got, name) != getattr(want, name)]
     cap = want.cap
@@ -2511,10 +2565,22 @@ def _hold_loaded(torch, label, got, want):
             problems.append(f"config of {cname}")
         if gvc.raw.dtype != vc.raw.dtype or not np.array_equal(gvc.raw, vc.raw):
             problems.append(f"raw::{cname}")
-        for f in dataclasses.fields(vc.state):
-            a, b = getattr(gvc.state, f.name), getattr(vc.state, f.name)
-            if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b):
-                problems.append(f"graph::{cname}::{f.name}")
+        mesh = hasattr(vc, "idx")
+        for s, (gs, ws) in enumerate(zip(gvc.idx.states, vc.idx.states) if mesh else [(gvc.state, vc.state)]):
+            for f in dataclasses.fields(ws):
+                a, b = getattr(gs, f.name), getattr(ws, f.name)
+                if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b):
+                    problems.append(f"graph::{cname}::{f.name}" + (f" of shard {s}" if mesh else ""))
+        if mesh:
+            g, w = gvc.idx, vc.idx
+
+            def tenants(idx):
+                return np.array(idx._part_list + [None], dtype=object)[idx._part_codes]
+
+            if (g._counts.tolist(), g._free, g._rr, got._rr) != (w._counts.tolist(), w._free, w._rr, want._rr):
+                problems.append(f"{cname}: the shards' allocation state")
+            if not np.array_equal(tenants(g), tenants(w)):
+                problems.append(f"{cname}: the shards' partition codes")
     integrity = got.integrity_check()
     if problems or integrity:
         raise AssertionError(f"snapshot: {label}: the loaded table differs in {problems}; "
@@ -2766,6 +2832,445 @@ def run_snapshots(torch, device, c5, tmp):
     return dict(config5_tvstore=a, follower_process=b, cut=c)
 
 
+# --------------------------------------------------------------------- #
+# phase 11: the mesh on the card
+# --------------------------------------------------------------------- #
+
+
+def _tenant_gt(torch, cfg, xp, q, rows, ids, k=K):
+    """The exact top-k of each query over the rows ``rows`` of the prepared
+    corpus ``xp``, as the ids ``ids`` of those rows."""
+    from tpuvec_torch.index.bruteforce import bruteforce_knn
+
+    valid = torch.zeros(xp.shape[0], dtype=torch.bool, device=xp.device)
+    valid[torch.as_tensor(rows, device=xp.device)] = True
+    gi = bruteforce_knn(q, xp, valid, metric=cfg.graph_metric, k=k, normalized=cfg.normalized)[1]
+    return np.asarray(ids)[gi.cpu().numpy()]
+
+
+def run_mesh_index(torch, device, run, path):
+    """Phase 11a: ShardedHnsw over MESH_S shards on the card, phase 4's
+    rows and parameters: add(batch=256), the sweep at recall@10 against the
+    exact scan (each batch split into the shards' descents, their loops and
+    the merge), and search(partition=) on a partitioned copy of the first
+    MESH_PART_N rows, 16 queries a tenant. ``path`` counts the path's
+    launches. Returns the figures and what the holds run on."""
+    from tpuvec_torch.index.graph import prepare_vectors
+    from tpuvec_torch.index.params import HnswParams
+    from tpuvec_torch.index.search import search_graph
+    from tpuvec_torch.parallel import sharding
+    from tpuvec_torch.parallel.sharding import ShardedHnsw, make_mesh
+    from tpuvec_torch.types import DistanceMetric
+
+    n, data, cfg = run["n"], run["data"], run["cfg"]
+    mesh = make_mesh(MESH_S, device=device)
+    params = HnswParams(m=cfg.m, max_m0=cfg.max_m0, ef_construction=cfg.ef_construction,
+                        ef_search=cfg.ef_search)
+    idx = ShardedHnsw(mesh, D, metric=DistanceMetric.COSINE, params=params, cap_per_shard=-(-n // MESH_S))
+    before, _ = path.read()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gids = idx.add(data[:n], batch=256)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    after, _ = path.read()
+    build_launches = {f: after[f] - before[f] for f in after}
+    counts = [int(s.count) for s in idx.states]
+    if len(idx) != n or sum(counts) != n or build_launches["f32"] == 0:
+        raise AssertionError(f"mesh: 11a add: {len(idx)} rows, shard counts {counts}, launches {build_launches}")
+    _log(f"mesh: 11a: ShardedHnsw over {MESH_S} shards on {sorted({str(d) for d in mesh.devices})}: add of "
+         f"{n} x {D} (batch=256) in {build_s:.2f}s = {n / build_s:.0f} vec/s (phase 4's single graph: "
+         f"{n / run['build_s']:.0f} vec/s); shard rows {counts}; loop kernel launches {build_launches}")
+
+    queries = data[n : n + NQ]
+    reps = [data[n + (i + 1) * NQ : n + (i + 2) * NQ] for i in range(REPS)]
+    gt = gids[run["gt"]]  # the exact top-10 rows as global ids
+    sweep = []
+    for ef in MESH_EFS:
+        d_h, i_h = idx.search(queries, k=K, ef=ef)  # warm-up, scored
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q in reps:
+            idx.search(q, k=K, ef=ef)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / REPS * 1e3
+        dh, ih = d_h.cpu().numpy(), i_h.cpu().numpy()
+        if dh.shape != (NQ, K) or not np.isfinite(dh).all() or (ih < 0).any():
+            raise AssertionError(f"mesh: 11a search output malformed at ef={ef}")
+        if (np.diff(dh, axis=1) < 0).any():
+            raise AssertionError(f"mesh: 11a merged distances not ascending at ef={ef}")
+        recall = _recall(ih, gt)
+        _, split = _table_split(torch, lambda: idx.search(queries, k=K, ef=ef))
+        single = next(s for s in run["sweep"] if s["ef"] == ef)
+        sweep.append(dict(ef=ef, recall=recall, ms_per_batch=ms, qps=NQ / (ms / 1e3), split_ms=split,
+                          single_graph_qps=single["qps"], single_graph_recall=single["recall"]))
+        _log(f"mesh: 11a: ef={ef} recall@10 {recall:.4f} {ms:.2f} ms/batch {NQ / (ms / 1e3):.0f} QPS "
+             f"(single graph {single['qps']:.0f} QPS at {single['recall']:.4f}); split (ms): {_fmt_split(split)}")
+    best = max((s for s in sweep if s["recall"] >= 0.95), key=lambda s: s["qps"], default=None)
+    if best is None:
+        raise AssertionError(f"mesh: 11a: no ef reached recall@10 >= 0.95: {sweep}")
+
+    # the merge alone: the shards' top-10 lists of one batch, [256, S*10] -> [256, 10]
+    qp = prepare_vectors(idx.config, queries, device=device)
+    with path.aside():
+        per = [search_graph(idx.config, st, qp, k=K, ef=best["ef"]) for st in idx.states]
+    ds = [d for d, _ in per]
+    gis = [sharding._global_ids(i, s, idx.config.cap) for s, (_, i) in enumerate(per)]
+    merge_ms = _time_ms(lambda: sharding._merge_shards(ds, gis, K), 20)
+    _log(f"mesh: 11a: the merge alone ([{NQ}, {MESH_S * K}] -> [{NQ}, {K}], CUDA events): {merge_ms:.4f} ms")
+
+    # search(partition=) on a partitioned copy of the first MESH_PART_N rows
+    tenants = [i % MESH_PART_TENANTS for i in range(MESH_PART_N)]
+    load = np.bincount([idx.shard_of_partition(t) for t in tenants], minlength=MESH_S)
+    pidx = ShardedHnsw(mesh, D, metric=DistanceMetric.COSINE, params=params,
+                       cap_per_shard=max(int(load.max()), 128))
+    before, _ = path.read()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pg = pidx.add(data[:MESH_PART_N], partitions=tenants, batch=256)
+    torch.cuda.synchronize()
+    part_build_s = time.perf_counter() - t0
+    per_q = NQ // MESH_PART_TENANTS
+    groups = [(t, queries[t * per_q : (t + 1) * per_q]) for t in range(MESH_PART_TENANTS)]
+    with path.aside():
+        xp = prepare_vectors(idx.config, data[:MESH_PART_N], device=device)
+        gts = [_tenant_gt(torch, idx.config, xp, prepare_vectors(idx.config, q, device=device),
+                          [i for i in range(MESH_PART_N) if tenants[i] == t], pg) for t, q in groups]
+        del xp
+    mid, _ = path.read()
+    res, ms = _timed(torch, lambda: [pidx.search(q, k=K, partition=t) for t, q in groups], 3)
+    after, _ = path.read()
+    masked = (after["f32+mask"] - mid["f32+mask"]) // 4
+    if masked == 0:
+        raise AssertionError("mesh: 11a: search(partition=) launched no f32+mask loop kernel")
+    part_ids = np.concatenate([i.cpu().numpy() for _, i in res])
+    part_recall = _recall(part_ids, np.concatenate(gts))
+    for (t, _), (_, i) in zip(groups, res):
+        ids = i.cpu().numpy()
+        members = {int(pg[r]) for r in range(MESH_PART_N) if tenants[r] == t}
+        if (ids < 0).any() or not set(ids.reshape(-1).tolist()) <= members:
+            raise AssertionError(f"mesh: 11a: search(partition={t}) returned a row of another tenant")
+    part = dict(rows=MESH_PART_N, tenants=MESH_PART_TENANTS, shard_rows=[int(c) for c in pidx._counts],
+                add_s=part_build_s, queries=NQ, batch=per_q, ms_per_batch=ms / MESH_PART_TENANTS,
+                qps=NQ / (ms / 1e3), recall=part_recall, purity=1.0, masked_launches_per_sweep=masked)
+    _log(f"mesh: 11a: search(partition=) on {MESH_PART_N} rows, {MESH_PART_TENANTS} tenants (shard rows "
+         f"{part['shard_rows']}; add {part_build_s:.2f}s): {MESH_PART_TENANTS} batches of {per_q}, "
+         f"{ms:.2f} ms in all = {part['qps']:.0f} QPS, recall@10 {part_recall:.4f} against each tenant's "
+         f"exact scan, purity 1.0; f32+mask launches a pass {masked}")
+    out = dict(shards=MESH_S, rows=n, build_s=build_s, build_vec_s=n / build_s,
+               single_graph_build_vec_s=n / run["build_s"], shard_rows=counts, sweep=sweep,
+               best=dict(ef=best["ef"], qps=best["qps"], recall=best["recall"]), merge_ms=merge_ms,
+               partition=part)
+    held = dict(idx=idx, pidx=pidx, queries=queries, groups=groups, construction=data[n + NQ : n + 2 * NQ])
+    return out, held
+
+
+def run_mesh_table(torch, device, c5, path, tmp):
+    """Phase 11b: BASELINE config 5 through VecTable(mesh=make_mesh(MESH_S))
+    at full size, phase 8a's data: insert_many, the growths and each
+    shard's rows, single-tenant knn(partition=) (the table's sharded masked
+    scan) beside the index's one-shard search(partition=), HNSW knn_many of
+    256 at recall@10 against the sharded exact scan, deletes, updates,
+    integrity_check(), and a tvstore snapshot saved and loaded on the card
+    with every route's answers bitwise equal."""
+    from tpuvec_torch.parallel.sharding import make_mesh
+    from tpuvec_torch.store import ColumnSpec, VecTable, snapshot
+    from tpuvec_torch.types import DistanceMetric
+
+    n, d = C5_N, C5_D
+    dd = c5["data"]
+    x, q, parts, per_tenant, q256, upd = (dd[k] for k in ("x", "q", "parts", "per_tenant", "q256", "upd"))
+    mesh = make_mesh(MESH_S, device=device)
+    cols = [ColumnSpec.vector("e", d, metric=DistanceMetric.COSINE), ColumnSpec.partition_key("tenant")]
+    t = VecTable("bench5", cols, initial_cap=n, mesh=mesh)
+    vc = t.vector_cols["e"]
+    grown = []
+    grow_mesh = t._grow_mesh
+
+    def counted_grow():
+        grown.append(vc.config.cap)
+        grow_mesh()
+
+    t._grow_mesh = counted_grow
+    rows = [{"e": x[i], "tenant": int(parts[i])} for i in range(n)]
+    before, _ = path.read()
+    insert_s, split = _timed_insert(torch, lambda: t.insert_many(rows, rowids=list(range(n))))
+    del rows
+    gc.collect()
+    after, _ = path.read()
+    flush_launches = {f: after[f] - before[f] for f in after}
+    shard_rows = [int(c) for c in vc.idx._counts]
+    if len(t) != n or sum(int(s.count) for s in vc.idx.states) != n or flush_launches["f32"] == 0:
+        raise AssertionError(f"mesh: 11b insert: {len(t)} rows, shard rows {shard_rows}, launches {flush_launches}")
+    _log(f"mesh: 11b: config 5 through VecTable(mesh=make_mesh({MESH_S})): insert_many of {n} rows in "
+         f"{insert_s:.2f}s = {n / insert_s:.0f} vec/s (phase 8a's single device: {n / c5['insert_s']:.0f} "
+         f"vec/s; stage timers on); {len(grown)} growths of the mesh (from {grown} slots a shard) to "
+         f"{vc.config.cap} a shard, cap {t.cap}; shard rows {shard_rows}; split (s): "
+         + ", ".join(f"{name} {sec:.2f}" for name, sec in split.items())
+         + f"; loop kernel launches {flush_launches}")
+
+    # single tenants: the table's route (a masked exact scan over every
+    # shard) and the index's one-shard route, the same 64 probes as 8a
+    probes = [(q[i % 64], int(parts[i * 97 % n])) for i in range(64)]
+    res, ms = _timed(torch, lambda: [t.knn("e", qq, k=K, partition=p) for qq, p in probes], 1)
+    for (qq, p), r in zip(probes, res):
+        if len(r) != min(K, per_tenant[p]) or any(parts[x_.rowid] != p for x_ in r):
+            raise AssertionError(f"mesh: 11b single-tenant knn of tenant {p}: {len(r)} rows")
+    one, ms1 = _timed(torch, lambda: [vc.idx.search(qq[None], k=K, partition=p) for qq, p in probes], 1)
+    for r, (dist, ids) in zip(res, one):
+        got = [(t._slot_to_rowid[int(g)], float(v)) for g, v in zip(ids[0].tolist(), dist[0].tolist()) if g >= 0]
+        if [x_.rowid for x_ in r] != [g for g, _ in got] or not np.allclose(
+                [x_.distance for x_ in r], [v for _, v in got], rtol=0, atol=1e-6):
+            raise AssertionError("mesh: 11b: the one-shard search(partition=) differs from the table's knn")
+    single = dict(table_qps=64 / (ms / 1e3), one_shard_qps=64 / (ms1 / 1e3))
+    _log(f"mesh: 11b: 64 single-tenant knn(partition=) {ms / 64:.3f} ms each = {single['table_qps']:.0f} QPS "
+         f"(phase 8a: {c5['single_qps']:.0f}), purity 1.0; the index's one-shard search(partition=) "
+         f"{ms1 / 64:.3f} ms each = {single['one_shard_qps']:.0f} QPS, the same rows")
+
+    def recall_point(label, **kw):
+        got, ms_ = _timed(torch, lambda: t.knn_many("e", q256, k=K, **kw), 3)
+        with path.aside():
+            exact = t.knn_many("e", q256, k=K, exact=True, **kw)
+        ids, want = _result_arrays(got)[0], _result_arrays(exact)[0]
+        recall = _recall(ids, want)
+        _, sp = _table_split(torch, lambda: t.knn_many("e", q256, k=K, **kw))
+        _log(f"mesh: 11b: {label}: recall@10 {recall:.4f} against the sharded exact scan, {ms_:.2f} ms a "
+             f"batch of 256 = {256 / (ms_ / 1e3):.0f} QPS; split (ms): {_fmt_split(sp)}")
+        return dict(label=label, recall=recall, qps=256 / (ms_ / 1e3), ms=ms_, split_ms=sp), ids
+
+    points = []
+    pt, _ = recall_point("HNSW ef=200 (default), unfiltered")
+    points.append(pt)
+    if pt["recall"] < 0.95:
+        raise AssertionError(f"mesh: 11b: HNSW recall@10 {pt['recall']:.4f} < 0.95")
+    _log_busy(torch, "mesh config 5 knn_many of 256, HNSW", lambda: t.knn_many("e", q256, k=K))
+    _, ems = _timed(torch, lambda: t.knn_many("e", q256, k=K, exact=True), 3)
+    _, esp = _table_split(torch, lambda: t.knn_many("e", q256, k=K, exact=True))
+    _log(f"mesh: 11b: knn_many(exact=True) of 256 (the sharded exact scan): {ems:.2f} ms = "
+         f"{256 / (ems / 1e3):.0f} QPS; split (ms): {_fmt_split(esp)}")
+    pt, ids = recall_point("HNSW under a 50% predicate (rowid even)", predicate=_even_rowid)
+    points.append(pt)
+    if (ids[ids >= 0] % 2).any():
+        raise AssertionError("mesh: 11b: an odd rowid came back under the predicate")
+
+    dels = list(range(0, n, 10))
+    t1 = time.perf_counter()
+    t.delete_many(dels)
+    torch.cuda.synchronize()
+    del_s = time.perf_counter() - t1
+    problems = t.integrity_check()
+    if problems:
+        raise AssertionError(f"mesh: 11b: integrity_check after deletes: {problems}")
+    pt, ids = recall_point(f"HNSW after delete_many of {len(dels)} rows")
+    points.append(pt)
+    if (ids[ids >= 0] % 10 == 0).any():
+        raise AssertionError("mesh: 11b: a deleted rowid came back")
+    ups = [r for r in range(n) if r % 10][: len(upd)]
+    t1 = time.perf_counter()
+    t.update_many(ups, [{"e": v} for v in upd])
+    torch.cuda.synchronize()
+    upd_s = time.perf_counter() - t1
+    if any(not np.array_equal(t.row(r)["e"].as_f32(), v) for r, v in zip(ups, upd)):
+        raise AssertionError("mesh: 11b: row() does not return an updated vector")
+    problems = t.integrity_check()
+    if problems:
+        raise AssertionError(f"mesh: 11b: integrity_check after updates: {problems}")
+    _log(f"mesh: 11b: delete_many of {len(dels)} rowids in {del_s * 1e3:.1f} ms (phase 8a: "
+         f"{c5['del_s'] * 1e3:.1f}); update_many of 256 rows in {upd_s * 1e3:.1f} ms (phase 8a: "
+         f"{c5['upd_s'] * 1e3:.1f}); integrity_check() == []")
+
+    # a mesh snapshot through tvstore, loaded on the card
+    routes = {"HNSW": {}, "exact": dict(exact=True), "50% predicate": dict(predicate=_even_rowid)}
+    snap_path = os.path.join(tmp, "config5_mesh.tvs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snapshot.save(t, snap_path, engine="native")
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(snap_path)
+    want = _answers(torch, t, q256, routes)
+    want_single = [t.knn("e", qq, k=K, partition=p) for qq, p in probes]
+    t0 = time.perf_counter()
+    loaded = snapshot.load(snap_path, mesh=mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    _hold_loaded(torch, "config 5 on the mesh, tvstore", loaded, t)
+    bitwise = _same_answers("config 5 on the mesh, tvstore", _answers(torch, loaded, q256, routes), want)
+    got_single = [loaded.knn("e", qq, k=K, partition=p) for qq, p in probes]
+    bitwise["single tenants"] = [(r.rowid, r.distance) for rs in got_single for r in rs] == [
+        (r.rowid, r.distance) for rs in want_single for r in rs]
+    if not bitwise["single tenants"]:
+        raise AssertionError("mesh: 11b: the loaded table's single-tenant answers differ")
+    _log(f"mesh: 11b: snapshot through tvstore: {nbytes} bytes saved in {save_s:.2f}s, loaded on the card "
+         f"in {load_s:.2f}s; host state, each shard's graph and allocation equal, integrity_check() == []; "
+         f"answers bitwise equal {bitwise}")
+    del loaded
+    out = dict(rows=n, dims=d, tenants=C5_TENANTS, shards=MESH_S, initial_cap=n, growths=len(grown),
+               cap_per_shard=vc.config.cap, shard_rows=shard_rows, insert_s=insert_s,
+               insert_vec_s=n / insert_s, single_device_insert_vec_s=n / c5["insert_s"], split_s=split,
+               single_tenant=single, points=points, exact_ms=ems, exact_split_ms=esp, delete_s=del_s,
+               deletes=len(dels), update_s=upd_s,
+               snapshot=dict(bytes=nbytes, save_s=save_s, load_s=load_s, routes_bitwise_equal=bitwise))
+    return out, dict(table=t, q256=q256)
+
+
+def run_mesh_sql(torch, device, c5, path):
+    """Phase 11c: connect(mesh=make_mesh(MESH_S)) with MESH_SQL_DDL over the
+    first MESH_SQL_N rows of config 5 (tenant 't<code>'): the load through
+    BEGIN / executemany / COMMIT, then the first MESH_SQL_Q of phase 8a's
+    256 queries as single KNN statements without and with ``tenant = ?``,
+    each equal to the table's knn."""
+    from tpuvec_torch.parallel.sharding import make_mesh
+    from tpuvec_torch.sql import connect
+
+    dd = c5["data"]
+    x, parts, q = dd["x"][:MESH_SQL_N], dd["parts"][:MESH_SQL_N], dd["q256"][:MESH_SQL_Q]
+    qb = [v.tobytes() for v in q]
+    db = connect(mesh=make_mesh(MESH_S, device=device))
+    db.execute(MESH_SQL_DDL)
+    t = db.table("mt")
+    params = [[i + 1, x[i].tobytes(), f"t{parts[i]}"] for i in range(MESH_SQL_N)]
+
+    def load():
+        db.execute("BEGIN")
+        db.executemany("INSERT INTO mt(rowid, emb, tenant) VALUES (?, ?, ?)", params)
+        db.execute("COMMIT")
+
+    load_s, split = _timed_insert(torch, load)
+    if len(t) != MESH_SQL_N or db.integrity_check("mt"):
+        raise AssertionError(f"mesh: 11c load: {len(t)} rows, integrity {db.integrity_check('mt')}")
+    _log(f"mesh: 11c: {MESH_SQL_DDL} on connect(mesh=make_mesh({MESH_S})): {MESH_SQL_N} rows loaded in "
+         f"{load_s:.2f}s = {MESH_SQL_N / load_s:.0f} vec/s (flush {split['flush']:.2f}s); cap {t.cap}, "
+         f"shard rows {[int(c) for c in t.vector_cols['emb'].idx._counts]}")
+    out = dict(ddl=MESH_SQL_DDL, rows=MESH_SQL_N, load_s=load_s, load_vec_s=MESH_SQL_N / load_s,
+               flush_s=split["flush"], cap=t.cap)
+    with path.aside():
+        gt = _result_arrays(t.knn_many("emb", list(q), k=K, exact=True))[0]
+    knn = "SELECT rowid, distance FROM mt WHERE emb MATCH ? AND k = 10"
+    rows, ms = _statements(torch, db, knn, [[b] for b in qb], form="f32")
+    with path.aside():
+        _same_as_table("mesh KNN", rows, [t.knn("emb", b, k=K) for b in qb])
+    recall = _recall(_sql_ids(rows), gt)
+    out["knn"] = dict(_latency(ms), recall=recall)
+    tenants = [f"t{parts[(j * 97) % MESH_SQL_N]}" for j in range(len(q))]
+    rows_t, ms_t = _statements(torch, db, knn.replace(" AND k", " AND tenant = ? AND k"),
+                               [[b, tn] for b, tn in zip(qb, tenants)])
+    with path.aside():
+        want = [t.knn("emb", b, k=K, partition=tn) for b, tn in zip(qb, tenants)]
+        gt_t = _result_arrays([t.knn("emb", b, k=K, partition=tn, exact=True) for b, tn in zip(qb, tenants)])[0]
+    _same_as_table("mesh KNN AND tenant = ?", rows_t, want)
+    for r, tn in zip(rows_t, tenants):
+        if any(f"t{parts[x_[0] - 1]}" != tn for x_ in r):
+            raise AssertionError("mesh: 11c: a statement under tenant = ? returned another tenant's row")
+    out["knn_tenant"] = dict(_latency(ms_t), recall=_recall(_sql_ids(rows_t), gt_t))
+    _log(f"mesh: 11c: {len(q)} KNN statements: p50 {out['knn']['p50_ms']:.2f} / p99 {out['knn']['p99_ms']:.2f} "
+         f"ms, recall@10 {recall:.4f}; AND tenant = ?: p50 {out['knn_tenant']['p50_ms']:.2f} / p99 "
+         f"{out['knn_tenant']['p99_ms']:.2f} ms, recall@10 {out['knn_tenant']['recall']:.4f}, purity 1.0; "
+         "every answer equal to the table's knn")
+    return out, dict(db=db, q=q)
+
+
+def run_mesh(torch, device, run, c5, tmp):
+    """Phase 11: 11a, 11b and 11c (the module docstring). Returns the
+    {"mesh": ...} figures, the loop kernel's launches of the phase's own
+    calls (not of the references they are held against) and what
+    check_mesh_loops holds."""
+    path = _PathLaunches()
+    t0 = time.time()
+    a, held_a = run_mesh_index(torch, device, run, path)
+    _log(f"mesh: 11a took {time.time() - t0:.1f}s")
+    t1 = time.time()
+    b, held_b = run_mesh_table(torch, device, c5, path, tmp)
+    _log(f"mesh: 11b took {time.time() - t1:.1f}s")
+    t1 = time.time()
+    c, held_c = run_mesh_sql(torch, device, c5, path)
+    _log(f"mesh: 11c took {time.time() - t1:.1f}s")
+    launches, bu = path.read()
+    if launches["f32"] == 0 or launches["f32+mask"] == 0 or bu or any(
+            launches[f] for f in launches if f not in ("f32", "f32+mask")):
+        raise AssertionError(f"mesh: phase 11 launches {launches}, beam_update {bu}")
+    _log(f"mesh: phase 11's loop kernel launches: {launches}")
+    return dict(figures={"11a": a, "11b": b, "11c": c}, launches=launches, a=held_a, b=held_b, c=held_c)
+
+
+def _shard_cases(torch, device, cfg, state, q, efs, construction):
+    """Hold cases (queries, exact top-10, ef, E, max_iters) on one shard's
+    graph: search at each ef, and construction on the rows
+    ``construction``."""
+    from tpuvec_torch.index.bruteforce import bruteforce_knn
+    from tpuvec_torch.index.build import _build_iter_budget
+    from tpuvec_torch.index.graph import prepare_vectors
+    from tpuvec_torch.index.search import default_max_iters
+
+    valid = state.levels >= 0
+    out = []
+    for rows, ef, e in [(q, max(ef, K), 1) for ef in efs] + [
+            (construction, max(cfg.ef_construction, cfg.max_m0), 2)]:
+        qp = prepare_vectors(cfg, rows, device=device)
+        gt = bruteforce_knn(qp, state.vectors, valid, metric=cfg.graph_metric, k=K,
+                            normalized=cfg.normalized)[1].cpu().numpy()
+        out.append((qp, gt, ef, e, default_max_iters(ef, 1) if e == 1 else _build_iter_budget(cfg.cap, ef, 2)))
+    return out[:-1], out[-1]
+
+
+def check_mesh_loops(torch, device, m):
+    """Phase 11's holds, each on one shard's graph (shard 0, or the tenant's
+    shard): 11a's search shapes (ef 32 and 64: EF 32 / 64, W=32) and its
+    construction shape (EF=256, E=2, W=64) at B=256 and B=1; 11a's
+    search(partition=) masked shape (KP=32, EF=128) under the tenant's
+    mask; 11b's search shape (EF=256, W=64), construction shape (EF=512,
+    E=2, W=128) at B=256 and B=1, and the 50% predicate's masked shape
+    (KP=32, EF=256); 11c's statements' search shape (EF=256, W=8) at B=1
+    and its construction shape (EF=16, E=2, W=16) at B=256 and B=1. B=1
+    runs B1_QUERIES queries, one a launch. Returns the shapes by form."""
+    from tpuvec_torch.index.bruteforce import bruteforce_knn
+    from tpuvec_torch.index.graph import prepare_vectors
+    from tpuvec_torch.index.search import default_max_iters
+
+    out = {"f32": [], "f32+mask": []}
+    a = m["a"]
+    idx = a["idx"]
+    search, build = _shard_cases(torch, device, idx.config, idx.states[0], a["queries"], (32, 64),
+                                 a["construction"])
+    _log("kernels: phase 11a's shapes on shard 0 of the sharded index")
+    out["f32"] += _hold_loop(torch, idx.config, idx.states[0], search + [build])
+    out["f32"] += _hold_loop(torch, idx.config, idx.states[0], [build], one_by_one=B1_QUERIES)
+    pidx = a["pidx"]
+    tenant, q = a["groups"][0]
+    s = pidx.shard_of_partition(tenant)
+    cfg, state = pidx.config, pidx.states[s]
+    mask = torch.as_tensor(pidx._part_codes[s] == pidx._part_code_of[tenant], device=device)
+    qp = prepare_vectors(cfg, q, device=device)
+    gt = bruteforce_knn(qp, state.vectors, mask, metric=cfg.graph_metric, k=K,
+                        normalized=cfg.normalized)[1].cpu().numpy()
+    _log(f"kernels: phase 11a's search(partition={tenant}) shape on its shard {s}")
+    out["f32+mask"] += _hold_masked(torch, "f32", cfg, state, qp, mask,
+                                    [(cfg.ef_search, K, default_max_iters(cfg.ef_search, 1))], gt)
+
+    t = m["b"]["table"]
+    vc = t.vector_cols["e"]
+    cfg, state = vc.config, vc.idx.states[0]
+    search, build = _shard_cases(torch, device, cfg, state, m["b"]["q256"], (cfg.ef_search,),
+                                 m["b"]["q256"])
+    _log("kernels: phase 11b's shapes on shard 0 of the config 5 mesh table")
+    out["f32"] += _hold_loop(torch, cfg, state, search + [build])
+    out["f32"] += _hold_loop(torch, cfg, state, [build], one_by_one=B1_QUERIES)
+    even = torch.as_tensor(t._filter_mask(predicate=_even_rowid).reshape(MESH_S, cfg.cap)[0], device=device)
+    qp = search[0][0]
+    gt = bruteforce_knn(qp, state.vectors, even, metric=cfg.graph_metric, k=K,
+                        normalized=cfg.normalized)[1].cpu().numpy()
+    out["f32+mask"] += _hold_masked(torch, "f32", cfg, state, qp, even,
+                                    [(cfg.ef_search, K, default_max_iters(cfg.ef_search, 1))], gt)
+
+    t = m["c"]["db"].table("mt")
+    vc = t.vector_cols["emb"]
+    cfg, state = vc.config, vc.idx.states[0]
+    search, build = _shard_cases(torch, device, cfg, state, m["c"]["q"], (cfg.ef_search,), m["c"]["q"])
+    _log("kernels: phase 11c's shapes on shard 0 of the SQL mesh table")
+    out["f32"] += _hold_loop(torch, cfg, state, search + [build], one_by_one=B1_QUERIES)
+    out["f32"] += _hold_loop(torch, cfg, state, [build])
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -2838,6 +3343,17 @@ def main() -> int:
     del sq["db"], sq["graph"]
     sq["sql"]["seconds"] = time.time() - t10
     _log(f"sql: phase 10 took {sq['sql']['seconds']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = time.time()
+    with tempfile.TemporaryDirectory(prefix="tpuvec-mesh-") as tmp, _loop_shapes_seen(torch) as seen:
+        mesh = run_mesh(torch, device, run, c5, tmp)
+    mesh_shapes = check_mesh_loops(torch, device, mesh)
+    _check_held("11", seen, mesh_shapes)
+    mesh["c"]["db"].close()
+    del mesh["a"], mesh["b"], mesh["c"]
+    mesh["figures"]["seconds"] = time.time() - t11
+    _log(f"mesh: phase 11 took {mesh['figures']['seconds']:.1f}s")
 
     def on(phase, shapes):  # each shape with the phase whose graph held it
         return [dict(s, on=phase) for s in shapes]
@@ -2870,9 +3386,10 @@ def main() -> int:
         entry("beam_search_level0[f32]", loop_src,
               {"phase 4": run["launches"]["f32"], "phase 8a": c5["launches"]["f32"],
                "phase 9": snap["config5_tvstore"]["launches"]["f32"],
-               "phase 9c": snap["cut"]["launches"]["f32"], "phase 10": sq["launches"]["f32"]},
+               "phase 9c": snap["cut"]["launches"]["f32"], "phase 10": sq["launches"]["f32"],
+               "phase 11": mesh["launches"]["f32"]},
               on("phase 3b", loop_shapes) + on("phase 8a", c5_shapes["f32"])
-              + on("phase 10", sql_shapes["f32"]), loop_shapes[-1]),
+              + on("phase 10", sql_shapes["f32"]) + on("phase 11", mesh_shapes["f32"]), loop_shapes[-1]),
         entry("beam_search_level0[int8]", loop_src, {"phase 6": qruns["int8"]["launches"]},
               on("phase 3c", qshapes["int8"]), qshapes["int8"][1]),
         entry("beam_search_level0[words]", loop_src,
@@ -2886,12 +3403,14 @@ def main() -> int:
     masked_paths = {
         "f32": {"phase 7": filt["launches"]["f32+mask"], "phase 8a": c5["launches"]["f32+mask"],
                 "phase 9": snap["config5_tvstore"]["launches"]["f32+mask"],
-                "phase 9c": snap["cut"]["launches"]["f32+mask"], "phase 10": sq["launches"]["f32+mask"]},
+                "phase 9c": snap["cut"]["launches"]["f32+mask"], "phase 10": sq["launches"]["f32+mask"],
+                "phase 11": mesh["launches"]["f32+mask"]},
         "int8": {"phase 7": filt["launches"]["int8+mask"]},
         "words": {"phase 7": filt["launches"]["words+mask"],
                   "phase 8b": c4t["launches"]["words+mask"]},
     }
-    table_masked = {"f32": on("phase 8a", c5_shapes["f32+mask"]) + on("phase 10", sql_shapes["f32+mask"]),
+    table_masked = {"f32": on("phase 8a", c5_shapes["f32+mask"]) + on("phase 10", sql_shapes["f32+mask"])
+                    + on("phase 11", mesh_shapes["f32+mask"]),
                     "words": on("phase 8b", c4_shapes["words+mask"])}
     kernels_line += [
         entry(f"beam_search_level0[{form}+mask]", masked_src, paths,
@@ -2900,6 +3419,7 @@ def main() -> int:
     ]
     _log(json.dumps({"snapshot": snap}))
     _log(json.dumps({"sql": sq["sql"]}))
+    _log(json.dumps({"mesh": mesh["figures"]}))
     _log(card)
     _log(json.dumps({"kernels": kernels_line}))
     _log(json.dumps({

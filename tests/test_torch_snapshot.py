@@ -47,7 +47,8 @@ from tpuvec.store import snapshot as jax_snapshot  # noqa: E402
 from tpuvec_torch import interop, native  # noqa: E402
 from tpuvec_torch.index.params import HnswParams  # noqa: E402
 from tpuvec_torch.store import ColumnSpec, SnapshotFollower, VecTable, snapshot, writer_lock  # noqa: E402
-from tpuvec_torch.types import IndexQuantization, InvalidState, VectorType  # noqa: E402
+from tpuvec_torch.parallel import make_mesh  # noqa: E402
+from tpuvec_torch.types import IndexQuantization, InvalidParameter, InvalidState, VectorType  # noqa: E402
 from tpuvec_torch.utils.data import synthetic_embeddings  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -305,14 +306,18 @@ def test_unreadable_version_and_mesh_raise(tmp_path, f32_table):
     _write_file(str(tmp_path / "v3.npz"), _arrays(t), dict(meta, format_version=3), "npz")
     with pytest.raises(InvalidState, match="unsupported snapshot format 3"):
         snapshot.load(str(tmp_path / "v3.npz"), device="cpu")
+    # the mesh is ported (tests/test_torch_sharding.py): a file with a
+    # "mesh" key needs a mesh of its shard count, and a mesh-backed table
+    # has one vector column
     mesh = {"n_shards": 4, "counts": [0] * 4, "free": [[]] * 4, "rr": 0, "table_rr": 0}
     _write_file(str(tmp_path / "mesh.npz"), _arrays(t), dict(meta, mesh=mesh), "npz")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(InvalidState, match="snapshot is mesh-backed"):
         snapshot.load(str(tmp_path / "mesh.npz"), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        snapshot.load(str(tmp_path / "m.npz"), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        VecTable("x", [ColumnSpec.vector("e", 4)], mesh=object(), device="cpu")
+    with pytest.raises(InvalidState, match="snapshot has 4 shards, mesh has 2"):
+        snapshot.load(str(tmp_path / "mesh.npz"), mesh=make_mesh(2, device="cpu"))
+    with pytest.raises(InvalidParameter, match="exactly one vector column"):
+        VecTable("x", [ColumnSpec.vector("e", 4), ColumnSpec.vector("f", 4)],
+                 mesh=make_mesh(2, device="cpu"))
 
 
 @pytest.mark.parametrize("value", [np.int64(3), (1, 2)], ids=["numpy int", "tuple"])

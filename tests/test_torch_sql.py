@@ -54,6 +54,7 @@ from tpuvec.sql import functions as JF  # noqa: E402
 from tpuvec.store import snapshot as jax_snapshot  # noqa: E402
 from tpuvec_torch.codec import Vector  # noqa: E402
 from tpuvec_torch.index.params import HnswParams  # noqa: E402
+from tpuvec_torch.parallel import make_mesh  # noqa: E402
 from tpuvec_torch.sql import Database, connect, register_all  # noqa: E402
 from tpuvec_torch.sql import ddl  # noqa: E402
 from tpuvec_torch.sql import functions as F  # noqa: E402
@@ -908,7 +909,9 @@ def test_connect_defaults_to_the_card():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        Database(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        connect(mesh=object(), device="cpu")
+    """The mesh is ported (tests/test_torch_sharding.py): a mesh-backed
+    connection's tables keep the mesh's own rule, one vector column."""
+    ddl = "CREATE VIRTUAL TABLE two USING vec0(a float[4], b float[4])"
+    for db in (Database(mesh=make_mesh(2, device="cpu")), connect(mesh=make_mesh(2, device="cpu"))):
+        with pytest.raises(port_types.InvalidParameter, match="exactly one vector column"):
+            db.execute(ddl)

@@ -48,6 +48,7 @@ from tpuvec_torch.index.graph import prepare_vectors  # noqa: E402
 from tpuvec_torch.index.params import HnswParams  # noqa: E402
 from tpuvec_torch.index.search import search_graph  # noqa: E402
 from tpuvec_torch.ops.rerank import expand_rerank_topk, rerank_topk  # noqa: E402
+from tpuvec_torch.parallel import make_mesh  # noqa: E402
 from tpuvec_torch.store import table as table_mod  # noqa: E402
 from tpuvec_torch.store.table import ColumnSpec, VecTable  # noqa: E402
 from tpuvec_torch.types import (  # noqa: E402
@@ -310,8 +311,10 @@ def test_errors(tmp_path):
         t.knn("e", [1.0, 0.0, 0.0, 0.0], k=1, partition=["a"])
     with pytest.raises(InvalidState):
         t.delete(6)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        VecTable("x", cols, mesh=object(), device="cpu")
+    # the mesh is ported (tests/test_torch_sharding.py): its own rule, one
+    # vector column on a mesh-backed table, raises
+    with pytest.raises(InvalidParameter, match="exactly one vector column"):
+        VecTable("x", cols + [ColumnSpec.vector("f", 4)], mesh=make_mesh(2, device="cpu"))
     # autosave is ported (tests/test_torch_snapshot.py): no longer an
     # error, and nothing is written before the first flush
     VecTable("x", cols, autosave_path=str(tmp_path / "t.npz"), device="cpu")

@@ -11,6 +11,7 @@ Public surface:
     tpuvec_torch.ops        -- distances, the beam kernels, rerank
     tpuvec_torch.index      -- HNSW build / search / delete + the exact scan
     tpuvec_torch.store      -- VecTable + snapshots, followers, autosave
+    tpuvec_torch.parallel   -- ShardedHnsw over a mesh of shards + its snapshots
     tpuvec_torch.sql        -- the vec0 SQL dialect: Database, vec_* functions
 """
 

@@ -37,7 +37,7 @@ from tpuvec_torch.quantize import pack_bits_to_words, quantize_int8_for_index
 from tpuvec_torch.types import DistanceMetric, IndexQuantization, VectorType
 
 __all__ = [
-    "HnswConfig", "GraphState", "allocate", "config_for", "prepare_vectors",
+    "HnswConfig", "GraphState", "allocate", "grow_state", "config_for", "prepare_vectors",
     "prepare_queries", "as_store_tensor",
 ]
 
@@ -179,6 +179,35 @@ def allocate(config: HnswConfig, *, device: str | torch.device = "cuda") -> Grap
         entry_level=full((), -1, i32),
         count=full((), 0, i32),
         upper_count=full((), 0, i32),
+    )
+
+
+def grow_state(state: GraphState, cap: int, cap_u: int) -> GraphState:
+    """``state`` padded to ``cap`` node rows and ``cap_u`` upper slots, the
+    new rows filled as ``allocate`` fills them (0 / -1 / +inf). The graph
+    carries over: adjacency holds slot ids, which a larger capacity leaves
+    as they are."""
+
+    def pad_rows(t, rows, fill):
+        out = torch.full((rows, *t.shape[1:]), fill, dtype=t.dtype, device=t.device)
+        out[: t.shape[0]] = t
+        return out
+
+    inf = float("inf")
+    s = state
+    return GraphState(
+        vectors=pad_rows(s.vectors, cap, 0),
+        adj0=pad_rows(s.adj0, cap, -1),
+        adj0_dist=pad_rows(s.adj0_dist, cap, inf),
+        levels=pad_rows(s.levels, cap, -1),
+        upper_slot=pad_rows(s.upper_slot, cap, -1),
+        upper_nodes=pad_rows(s.upper_nodes, cap_u, -1),
+        upper_adj=pad_rows(s.upper_adj, cap_u, -1),
+        upper_dist=pad_rows(s.upper_dist, cap_u, inf),
+        entry_point=s.entry_point,
+        entry_level=s.entry_level,
+        count=s.count,
+        upper_count=s.upper_count,
     )
 
 

@@ -179,14 +179,11 @@ class Database:
         """``device``: where every vec0 table created on this connection
         keeps its tensors (default ``"cuda"``; without a card this raises,
         as ``VecTable`` does; pass ``"cpu"`` to run on the CPU).
-        ``mesh``: mesh-backed tables are not ported yet and raise
-        ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-backed databases are not ported yet (parallel/sharding.py; "
-                "ROADMAP.md, queue 1, item 4)"
-            )
-        self.device = resolve(device)
+        ``mesh``: an optional ``parallel.sharding.Mesh``; vec0 tables created
+        on this connection are then mesh-backed (partition keys route rows
+        to shards) and live on the mesh's devices, and ``device`` is not
+        read."""
+        self.device = resolve(device) if mesh is None else mesh.devices[0]
         # autocommit (rusqlite's default): explicit BEGIN/COMMIT/ROLLBACK
         # are owned by this engine, not the stdlib module's implicit-txn
         # machinery
@@ -252,6 +249,7 @@ class Database:
                 columns,
                 index_type=index_type,
                 initial_cap=options.get("capacity", 1024),
+                mesh=self.mesh,
                 device=self.device,
             )
             self._record("create", name)

@@ -56,7 +56,8 @@ class SnapshotFollower:
 
     ``refresh()`` polls the file generation and reloads on change;
     ``table`` is the most recently loaded :class:`VecTable`, on
-    ``device`` (default ``"cuda"``).
+    ``device`` (default ``"cuda"``), or on ``mesh`` for a mesh-backed
+    snapshot.
     """
 
     def __init__(self, path: str, *, mesh=None, device: str | torch.device = "cuda"):

@@ -12,17 +12,19 @@ snapshot written by either package loads in the other:
 * ``graph::<col>::<field>``: each GraphState field; packed bit words are
   ``uint32`` in the file (the port's int32 words cross as views, never as
   value casts: ``interop.state_to_numpy`` / ``state_from_numpy``);
-* ``__meta__``: the UTF-8 JSON record as a uint8 array.
+* ``__meta__``: the UTF-8 JSON record as a uint8 array; a mesh-backed
+  table's adds a ``"mesh"`` key (shard count, per-shard high-water counts
+  and free lists, both round-robin pointers), and its graph fields are
+  stacked ``[S, ...]``.
 
 Two engines write it: the native tvstore (``tpuvec_torch/native.py``:
 mmap + CRC) and ``np.savez_compressed``. Both write a temporary file and
 rename it, so a reader never sees a torn snapshot.
 
-Where the port differs: ``load`` takes ``device=`` (default ``"cuda"``);
-mesh-backed snapshots are not ported yet and raise
-``NotImplementedError``; a scalar value that JSON would not bring back as
-itself (a tuple) raises ``InvalidState`` at save, where the JAX package
-writes a file it cannot load.
+Where the port differs: ``load`` takes ``device=`` (default ``"cuda"``;
+a mesh-backed table loads onto its mesh's devices instead); a scalar value
+that JSON would not bring back as itself (a tuple) raises ``InvalidState``
+at save, where the JAX package writes a file it cannot load.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch
 from tpuvec_torch import interop, native
 from tpuvec_torch.device import resolve
 from tpuvec_torch.index.params import HnswParams
-from tpuvec_torch.store.table import ColumnSpec, VecTable
+from tpuvec_torch.store.table import ColumnSpec, VecTable, _MeshVectorColumn
 from tpuvec_torch.types import (
     DistanceMetric,
     IndexQuantization,
@@ -69,12 +71,6 @@ _GRAPH_FIELDS = [
     "count",
     "upper_count",
 ]
-
-_NOT_PORTED = (
-    "mesh-backed snapshots are not ported yet (parallel/sharding.py; "
-    "ROADMAP.md, queue 1, item 4)"
-)
-
 
 def _spec_to_json(spec: ColumnSpec) -> dict:
     d = {
@@ -154,13 +150,28 @@ def save(table: VecTable, path: str, *, engine: str = "auto") -> None:
         "free_slots": table._free_slots,
         "scalar_data": _scalar_data(table),
     }
+    devices = [table.device]
+    if table.mesh is not None:
+        vc = next(iter(table.vector_cols.values()))
+        meta["mesh"] = {
+            "n_shards": vc.idx.n_shards,
+            "counts": vc.idx._counts.tolist(),
+            "free": [list(f) for f in vc.idx._free],
+            "rr": vc.idx._rr,
+            "table_rr": table._rr,
+        }
+        devices = list(table.mesh.devices)
     meta_json = json.dumps(meta)
-    if table.device.type == "cuda":
-        torch.cuda.synchronize(table.device)
+    for dev in set(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     arrays: dict[str, np.ndarray] = {}
     for cname, vc in table.vector_cols.items():
         arrays[f"raw::{cname}"] = vc.raw
-        state = interop.state_to_numpy(vc.state)
+        if isinstance(vc, _MeshVectorColumn):
+            state = interop.states_to_numpy(vc.idx.states)
+        else:
+            state = interop.state_to_numpy(vc.state)
         for f in _GRAPH_FIELDS:
             arrays[f"graph::{cname}::{f}"] = state[f]
     arrays["__meta__"] = np.frombuffer(meta_json.encode("utf-8"), dtype=np.uint8)
@@ -206,28 +217,46 @@ def load(path: str, mesh=None, *, device: str | torch.device = "cuda") -> VecTab
     """Restore a VecTable from a snapshot file (tvstore or npz) onto
     ``device``. The table starts with no pending rows, a fresh mutation
     version and no device caches; scalar values are interned again in the
-    order the file lists them."""
-    if mesh is not None:
-        raise NotImplementedError(_NOT_PORTED)
-    dev = resolve(device)
+    order the file lists them.
+
+    A mesh-backed snapshot needs a ``mesh`` with the same shard count and
+    loads onto its devices; a ``mesh`` given for a single-device snapshot
+    is not used."""
     z = _open_archive(path)
     meta = json.loads(bytes(z["__meta__"]).decode("utf-8"))
     if meta.get("format_version") not in _READABLE_VERSIONS:
         raise InvalidState(f"unsupported snapshot format {meta.get('format_version')}")
-    if meta.get("mesh") is not None:
-        raise NotImplementedError(_NOT_PORTED)
+    mesh_meta = meta.get("mesh")
+    if mesh_meta is not None:
+        if mesh is None:
+            raise InvalidState(
+                "snapshot is mesh-backed: pass load(path, mesh=...) with "
+                f"{mesh_meta['n_shards']} devices"
+            )
+        if mesh.devices.size != mesh_meta["n_shards"]:
+            raise InvalidState(
+                f"snapshot has {mesh_meta['n_shards']} shards, mesh has {mesh.devices.size}"
+            )
+        dev = mesh.devices[0]
+    else:
+        mesh = None
+        dev = resolve(device)
     # v1 snapshots written before the upper-array flattening carry
-    # [cap_u, LU, M] arrays; the runtime layout is [cap_u, LU*M]
+    # [cap_u, LU, M] arrays; the runtime layout is [cap_u, LU*M]. Mesh
+    # snapshots stack a leading shard axis, so the expected rank is one
+    # higher there
+    expect_ndim = 2 if mesh is None else 3
     for key in list(z):
         if key.endswith("::upper_adj") or key.endswith("::upper_dist"):
-            if z[key].ndim == 3:
-                z[key] = z[key].reshape(z[key].shape[0], -1)
+            if z[key].ndim == expect_ndim + 1:
+                z[key] = z[key].reshape(*z[key].shape[: expect_ndim - 1], -1)
     columns = [_spec_from_json(c) for c in meta["columns"]]
     table = VecTable(
         meta["name"],
         columns,
         index_type=IndexType.parse(meta["index_type"]),
-        initial_cap=128,
+        initial_cap=128 if mesh is None else 1,
+        mesh=mesh,
         device=dev,
     )
     table._rowid_to_slot = {int(k): v for k, v in meta["rowid_to_slot"].items()}
@@ -243,6 +272,9 @@ def load(path: str, mesh=None, *, device: str | torch.device = "cuda") -> VecTab
             sc.set(table._rowid_to_slot[int(rid_s)], v)
     for cname, vc in table.vector_cols.items():
         raw = z.pop(f"raw::{cname}")
+        if isinstance(vc, _MeshVectorColumn):
+            _load_mesh_column(table, vc, cname, raw, z, mesh_meta)
+            continue
         cap = raw.shape[0]
         if cap != vc.config.cap:
             vc.config = dataclasses.replace(
@@ -259,3 +291,32 @@ def load(path: str, mesh=None, *, device: str | torch.device = "cuda") -> VecTab
     # mask silently mis-filter
     table._grow_host(table.cap)
     return table
+
+
+def _load_mesh_column(table: VecTable, vc: _MeshVectorColumn, cname: str, raw, z, mesh_meta) -> None:
+    """The sharded index of a mesh-backed column from the file: the stacked
+    graph fields, the allocation state of the ``"mesh"`` meta key, and the
+    partition codes rebuilt from the table's partition column (the one
+    source of truth), interned in rowid-map order."""
+    idx = vc.idx
+    cap = int(z[f"graph::{cname}::vectors"].shape[1])
+    if cap != idx.config.cap:
+        idx.config = dataclasses.replace(
+            idx.config, cap=cap, cap_u=int(z[f"graph::{cname}::upper_nodes"].shape[1])
+        )
+    vc.raw = raw
+    idx.states = interop.states_from_numpy(
+        {f: z.pop(f"graph::{cname}::{f}") for f in _GRAPH_FIELDS}, idx.mesh.devices
+    )
+    idx._counts = np.asarray(mesh_meta["counts"], dtype=np.int64)
+    idx._free = [list(f) for f in mesh_meta["free"]]
+    idx._rr = mesh_meta["rr"]
+    table._rr = mesh_meta["table_rr"]
+    idx._part_codes = np.full((idx.n_shards, cap), -1, dtype=np.int32)
+    if table.partition_col is not None:
+        sc = table._scalars[table.partition_col]
+        for slot in table._rowid_to_slot.values():
+            v = sc.get(slot)
+            if v is not None:
+                s, sl = divmod(slot, cap)
+                idx._part_codes[s, sl] = idx._intern_partition(v)

@@ -1,5 +1,5 @@
 """VecTable: the vec0 virtual table as a device-resident store. The port of
-``tpuvec/store/table.py`` for one device.
+``tpuvec/store/table.py``.
 
 As in the JAX package:
 
@@ -30,8 +30,16 @@ Where the port differs: every tensor lives on ``device`` (default
 batches go to the device at their own length, not padded to a fixed shape
 (torch has nothing to recompile); each flush batch passes the JAX
 package's padded width (16 or 256) as ``insert_batch(width=)``, so the
-upper stage's cap is the JAX package's. Mesh-backed tables are not
-ported yet and raise ``NotImplementedError``.
+upper stage's cap is the JAX package's.
+
+A mesh-backed table (``mesh=``, ``parallel/sharding.py``) holds its one
+vector column as a ``ShardedHnsw``, as in the JAX package: table slots ARE
+the sharded index's global ids (shard * cap + local slot), partition
+values route rows to shards, a full shard doubles the table's capacity
+(``_grow_mesh``, which remaps every host-side slot), and the host's live
+mask and codes reshape to ``[S, cap]`` per-shard masks. The JAX design's
+limits are kept: one vector column, no per-query partitions, no rerank
+expansion. The shards live on the mesh's devices; ``device`` is not read.
 
 Opt-in durability, as in the JAX package: with ``autosave_path`` every
 ``autosave_every`` flushes start an atomic snapshot (``store/snapshot.py``)
@@ -53,11 +61,17 @@ from tpuvec_torch.codec import Vector, pack_bits, unpack_bits
 from tpuvec_torch.device import resolve
 from tpuvec_torch.index.bruteforce import bruteforce_knn_internal
 from tpuvec_torch.index.build import build_graph, delete_ids, insert_batch
-from tpuvec_torch.index.graph import GraphState, allocate, config_for, prepare_vectors
+from tpuvec_torch.index.graph import GraphState, allocate, config_for, grow_state, prepare_vectors
 from tpuvec_torch.index.params import HnswParams
 from tpuvec_torch.index.search import search_graph
 from tpuvec_torch.ops.distance import internal_to_output
 from tpuvec_torch.ops.rerank import expand_rerank_topk, rerank_topk
+from tpuvec_torch.parallel.sharding import (
+    ShardedHnsw,
+    ShardFullError,
+    _sharded_exact,
+    _sharded_search,
+)
 from tpuvec_torch.types import (
     DimensionMismatch,
     DistanceMetric,
@@ -218,6 +232,10 @@ class _VectorColumn:
                 (self.config.cap, spec.dimensions), dtype=torch.float32, device=device
             )
 
+    @property
+    def slots_cap(self) -> int:
+        return self.config.cap
+
     def _shadow_fits(self) -> bool:
         return (
             _is_binary_rerank(self)
@@ -255,30 +273,94 @@ class _VectorColumn:
         raw = np.zeros((c.cap, self.raw.shape[1]), dtype=self.raw.dtype)
         raw[: self.raw.shape[0]] = self.raw
         self.raw = raw
-        s = self.state
-
-        def pad_rows(t, rows, fill):
-            out = torch.full((rows, *t.shape[1:]), fill, dtype=t.dtype, device=t.device)
-            out[: t.shape[0]] = t
-            return out
-
-        self.state = GraphState(
-            vectors=pad_rows(s.vectors, c.cap, 0),
-            adj0=pad_rows(s.adj0, c.cap, -1),
-            adj0_dist=pad_rows(s.adj0_dist, c.cap, _INF),
-            levels=pad_rows(s.levels, c.cap, -1),
-            upper_slot=pad_rows(s.upper_slot, c.cap, -1),
-            upper_nodes=pad_rows(s.upper_nodes, c.cap_u, -1),
-            upper_adj=pad_rows(s.upper_adj, c.cap_u, -1),
-            upper_dist=pad_rows(s.upper_dist, c.cap_u, _INF),
-            entry_point=s.entry_point,
-            entry_level=s.entry_level,
-            count=s.count,
-            upper_count=s.upper_count,
-        )
+        self.state = grow_state(self.state, c.cap, c.cap_u)
         if self.shadow is not None:
             self.shadow = None  # free the old copy before the new one
             self.refresh_shadow()
+
+
+class _MeshVectorColumn:
+    """A mesh-backed vector column: one ``ShardedHnsw`` (a sub-index per
+    shard) behind the VecTable surface. Table slots ARE the sharded
+    index's global ids (shard * cap + local slot), so the host-side live
+    mask and code arrays reshape to ``[S, cap]`` per-shard masks. It keeps
+    no rerank shadow: a BINARY column reranks on the host."""
+
+    shadow = None
+
+    def __init__(self, spec: ColumnSpec, total_cap: int, index_type: IndexType, mesh):
+        self.spec = spec
+        self.params = spec.params or HnswParams()
+        self.has_hnsw = spec.hnsw and index_type is IndexType.HNSW
+        self.mesh = mesh
+        self.idx = ShardedHnsw(
+            mesh,
+            spec.dimensions,
+            metric=spec.metric,
+            params=self.params,
+            cap_per_shard=max(-(-total_cap // mesh.devices.size), 128),
+            quantization=spec.quantization,
+            vec_type=spec.vec_type or VectorType.FLOAT32,
+        )
+        self.raw = np.zeros((self.slots_cap, _raw_width(spec)), dtype=_raw_dtype(spec))
+
+    @property
+    def config(self):
+        return self.idx.config
+
+    @property
+    def slots_cap(self) -> int:
+        return self.idx.n_shards * self.config.cap
+
+    def grow(self, new_total_cap: int) -> None:
+        """Grow per-shard capacity in place (the sub-graphs carry over). The
+        caller (VecTable._grow_mesh) remaps global slot ids:
+        (s, sl) -> s * new_cap + sl."""
+        old_cap = self.config.cap
+        self.idx.grow(-(-new_total_cap // self.idx.n_shards))
+        new_cap = self.config.cap
+        if new_cap == old_cap:
+            return
+        s_n, w = self.idx.n_shards, self.raw.shape[1]
+        raw = np.zeros((s_n * new_cap, w), dtype=self.raw.dtype)
+        raw.reshape(s_n, new_cap, w)[:, :old_cap] = self.raw.reshape(s_n, old_cap, w)
+        self.raw = raw
+
+    def alloc_slot(self, part_value, rr: int) -> int:
+        """A global slot: the partition's shard, else shard ``rr % S``."""
+        if part_value is not None:
+            shard = self.idx.shard_of_partition(part_value)
+        else:
+            shard = rr % self.idx.n_shards
+        local = self.idx._alloc_slot(shard)
+        if part_value is not None:
+            self.idx._part_codes[shard, local] = self.idx._intern_partition(part_value)
+        return shard * self.config.cap + local
+
+    def insert_prepared(self, slots: np.ndarray, prepared: torch.Tensor, batch: int, start: int = 1):
+        cap = self.config.cap
+        per_shard: list[list[int]] = [[] for _ in range(self.idx.n_shards)]
+        local = np.empty(len(slots), dtype=np.int64)
+        for row, g in enumerate(slots):
+            s, sl = divmod(int(g), cap)
+            per_shard[s].append(row)
+            local[row] = sl
+        self.idx._insert_rows(per_shard, local, prepared, batch, start=start)
+
+    def delete_slots(self, slots) -> None:
+        self.idx.delete(np.asarray(slots, dtype=np.int64))
+
+    def _per_shard(self, mask: np.ndarray) -> list[torch.Tensor]:
+        """A host mask over the table's slots as one bool tensor per shard."""
+        rows = mask.reshape(self.idx.n_shards, self.config.cap)
+        return [torch.as_tensor(r, device=dev) for r, dev in zip(rows, self.mesh.devices)]
+
+    def exact(self, qp, k, valid: np.ndarray):
+        return _sharded_exact(self.config, self.idx.states, qp, self._per_shard(valid), k=k)
+
+    def hnsw(self, qp, k, ef, mask: np.ndarray | None):
+        masks = None if mask is None else self._per_shard(mask)
+        return _sharded_search(self.config, self.idx.states, qp, k=k, ef=ef, masks=masks)
 
 
 def _raw_dtype(spec: ColumnSpec):
@@ -341,20 +423,26 @@ class VecTable:
         names = [c.name for c in columns]
         if len(set(names)) != len(names):
             raise InvalidParameter("duplicate column name")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-backed tables are not ported yet (parallel/sharding.py; "
-                "ROADMAP.md, queue 1, item 4)"
-            )
         self.name = name
         self.columns = list(columns)
         self.index_type = index_type
-        self.device = resolve(device)
-        self.vector_cols = {
-            c.name: _VectorColumn(c, initial_cap, index_type, self.device)
-            for c in columns
-            if c.kind == "vector"
-        }
+        self.mesh = mesh
+        if mesh is not None:
+            vcols = [c for c in columns if c.kind == "vector"]
+            if len(vcols) != 1:
+                raise InvalidParameter("mesh-backed tables support exactly one vector column")
+            self.device = mesh.devices[0]
+            self.vector_cols = {
+                vcols[0].name: _MeshVectorColumn(vcols[0], initial_cap, index_type, mesh)
+            }
+        else:
+            self.device = resolve(device)
+            self.vector_cols = {
+                c.name: _VectorColumn(c, initial_cap, index_type, self.device)
+                for c in columns
+                if c.kind == "vector"
+            }
+        self._rr = 0  # round-robin shard pointer (mesh mode)
         self.scalar_cols = [c for c in columns if c.kind != "vector"]
         self.partition_col = next(
             (c.name for c in columns if c.kind == "partition"), None
@@ -388,7 +476,7 @@ class VecTable:
 
     @property
     def cap(self) -> int:
-        return next(iter(self.vector_cols.values())).config.cap
+        return next(iter(self.vector_cols.values())).slots_cap
 
     def __len__(self) -> int:
         with self._lock:
@@ -419,12 +507,51 @@ class VecTable:
             )
         return v
 
-    def _alloc_slot(self) -> int:
+    def _alloc_slot(self, part_value=None) -> int:
+        if self.mesh is not None:
+            vc = next(iter(self.vector_cols.values()))
+            try:
+                slot = vc.alloc_slot(part_value, self._rr)
+            except ShardFullError:
+                self._grow_mesh()
+                slot = vc.alloc_slot(part_value, self._rr)
+            if part_value is None:
+                self._rr += 1
+            return slot
         if self._free_slots:
             return self._free_slots.pop()
         s = self._next_slot
         self._next_slot += 1
         return s
+
+    def _grow_mesh(self) -> None:
+        """Double a mesh-backed table's capacity in place. The per-shard
+        sub-graphs carry over (adjacency holds local slots); global slot ids
+        change meaning (shard * cap + slot), so every host-side slot
+        reference is remapped here."""
+        vc = next(iter(self.vector_cols.values()))
+        s_n = vc.idx.n_shards
+        old_cap = vc.config.cap
+        vc.grow(self.cap * 2)
+        new_cap = vc.config.cap
+        if new_cap == old_cap:
+            raise InvalidState("mesh capacity growth failed to enlarge")
+
+        def remap(g: int) -> int:
+            s, sl = divmod(int(g), old_cap)
+            return s * new_cap + sl
+
+        self._rowid_to_slot = {r: remap(g) for r, g in self._rowid_to_slot.items()}
+        self._slot_to_rowid = {v: k for k, v in self._rowid_to_slot.items()}
+        self._free_slots = [remap(g) for g in self._free_slots]
+        self._pending = [(rid, remap(slot), vecs) for rid, slot, vecs in self._pending]
+        live = np.zeros(s_n * new_cap, dtype=bool)
+        live.reshape(s_n, new_cap)[:, :old_cap] = self._live[: s_n * old_cap].reshape(s_n, old_cap)
+        self._live = live
+        for sc in self._scalars.values():
+            codes = np.full(s_n * new_cap, -1, dtype=np.int32)
+            codes.reshape(s_n, new_cap)[:, :old_cap] = sc.codes[: s_n * old_cap].reshape(s_n, old_cap)
+            sc.codes = codes
 
     def _grow_host(self, needed: int) -> None:
         """Grow host-side slot arrays (live mask, scalar columns)."""
@@ -474,7 +601,8 @@ class VecTable:
                     raise InvalidParameter(f"missing vector for column '{cname}'")
                 vecs[cname] = self._decode_vector(vc.spec, values[cname])
 
-            slot = self._alloc_slot()
+            part = values.get(self.partition_col) if self.partition_col is not None else None
+            slot = self._alloc_slot(part)
             if slot >= self._live.shape[0]:
                 self._grow_host(slot + 1)
             for c in self.scalar_cols:
@@ -520,8 +648,14 @@ class VecTable:
             for cname, vc in self.vector_cols.items():
                 vals = np.stack([p[2][cname].to_numpy() for p in pend])
                 vc.raw[slots] = pack_bits(vals) if vc.spec.vec_type is VectorType.BIT else vals
-                vc.update_shadow(slots, vals)
                 prepared = self._prepare_rows(vc, vals)
+                if isinstance(vc, _MeshVectorColumn):
+                    # one shared schedule over the shards, every round at the
+                    # padded width, seeded with the per-shard graph size
+                    vc.insert_prepared(slots, prepared, batch=_FLUSH_THRESHOLD,
+                                       start=max(1, graph_size // vc.idx.n_shards))
+                    continue
+                vc.update_shadow(slots, vals)
                 c = vc.config
                 levels = torch.as_tensor(
                     sample_levels_np(slots, c.rng_seed, c.level_factor, c.lu), device=self.device
@@ -600,8 +734,13 @@ class VecTable:
                 self._live[s] = False
                 self._version += 1
                 slots.append(s)
-                self._free_slots.append(s)
+                if self.mesh is None:
+                    self._free_slots.append(s)
             if not slots:
+                return
+            if self.mesh is not None:  # the shards keep their own free lists
+                for vc in self.vector_cols.values():
+                    vc.delete_slots(slots)
                 return
             ids = torch.as_tensor(np.array(slots, dtype=np.int32), device=self.device)
             for vc in self.vector_cols.values():
@@ -772,6 +911,11 @@ class VecTable:
             ):
                 if self.partition_col is None:
                     raise InvalidParameter("table has no partition key column")
+                if self.mesh is not None:
+                    raise InvalidParameter(
+                        "per-query partitions are not supported on "
+                        "mesh-backed tables; loop over knn(partition=...)"
+                    )
                 if _is_binary_rerank(vc):
                     raise InvalidParameter(
                         "per-query partitions are not supported on "
@@ -785,6 +929,7 @@ class VecTable:
                 partition is not None
                 and predicate is None
                 and not filters
+                and self.mesh is None
                 and not _is_binary_rerank(vc)
             ):
                 # scalar-partition fast path: a selective tenant goes
@@ -861,6 +1006,10 @@ class VecTable:
 
     def _exact(self, vc: _VectorColumn, qp, k, mask):
         c = vc.config
+        if isinstance(vc, _MeshVectorColumn):
+            valid = self._live[: self.cap]
+            d, i = vc.exact(qp, k, valid if mask is None else valid & mask)
+            return _output(c, d), i
         d, i = bruteforce_knn_internal(
             qp, vc.state.vectors, self._valid(mask),
             metric=c.graph_metric, k=k, normalized=c.normalized,
@@ -887,6 +1036,9 @@ class VecTable:
 
     def _hnsw(self, vc: _VectorColumn, qp, k, ef, mask=None):
         c = vc.config
+        if isinstance(vc, _MeshVectorColumn):
+            d, i = vc.hnsw(qp, k, ef, mask)
+            return _output(c, d), i
         fm = None if mask is None else torch.as_tensor(mask, device=self.device)
         d, i = search_graph(c, vc.state, qp, k=k, ef=ef, filter_mask=fm)
         return _output(c, d), i
@@ -901,7 +1053,8 @@ class VecTable:
         f32 originals rerank them. ``expand`` adds the candidates' level-0
         neighbours to the rerank pool (``expand_rerank_topk``): the default
         when the graph was searched and the device shadow exists. Without a
-        shadow (over ``SHADOW_BUDGET_BYTES``) the rerank runs on the host.
+        shadow (over ``SHADOW_BUDGET_BYTES``, or a mesh-backed column) the
+        rerank runs on the host, with no expansion.
         """
         coarse_k = int(coarse_k) if coarse_k else max(10 * k, 96)
         graph_used = not (
@@ -967,6 +1120,9 @@ class VecTable:
             problems = []
             n_live = len(self._rowid_to_slot)
             for cname, vc in self.vector_cols.items():
+                if isinstance(vc, _MeshVectorColumn):
+                    problems += _mesh_problems(cname, vc, n_live)
+                    continue
                 st = vc.state
                 count = int(st.count)
                 if count != n_live:
@@ -992,6 +1148,11 @@ class VecTable:
             if params is not None:
                 params.validate()
                 vc.params = params
+            slots = np.array(sorted(self._slot_to_rowid), dtype=np.int32)
+            if isinstance(vc, _MeshVectorColumn):
+                self._rebuild_mesh(vc, slots)
+                return
+            if params is not None:
                 vc.config = config_for(
                     vc.spec.dimensions,
                     metric=vc.spec.metric,
@@ -1000,7 +1161,6 @@ class VecTable:
                     params=params,
                     cap=vc.config.cap,
                 )
-            slots = np.array(sorted(self._slot_to_rowid), dtype=np.int32)
             if slots.size == 0:
                 vc.state = allocate(vc.config, device=self.device)
                 return
@@ -1009,3 +1169,45 @@ class VecTable:
                 raws = unpack_bits(raws, vc.spec.dimensions)
             prepared = self._prepare_rows(vc, raws)
             vc.state = build_graph(vc.config, prepared, ids=slots, device=self.device)
+
+    def _rebuild_mesh(self, vc: _MeshVectorColumn, slots: np.ndarray) -> None:
+        """A fresh sharded index with the same allocation state, then every
+        live row re-inserted at its slot."""
+        old = vc.idx
+        vc.idx = ShardedHnsw(
+            vc.mesh,
+            vc.spec.dimensions,
+            metric=vc.spec.metric,
+            params=vc.params,
+            cap_per_shard=old.config.cap,
+            quantization=vc.spec.quantization,
+            vec_type=vc.spec.vec_type or VectorType.FLOAT32,
+        )
+        for attr in ("_counts", "_free", "_part_codes", "_part_list", "_part_code_of", "_rr"):
+            setattr(vc.idx, attr, getattr(old, attr))
+        del old
+        if slots.size == 0:
+            return
+        raws = vc.raw[slots]
+        if vc.spec.vec_type is VectorType.BIT:
+            raws = unpack_bits(raws, vc.spec.dimensions)
+        vc.insert_prepared(slots, self._prepare_rows(vc, raws), batch=_FLUSH_THRESHOLD)
+
+
+def _mesh_problems(cname: str, vc: _MeshVectorColumn, n_live: int) -> list[str]:
+    """A mesh column's invariants: node counts sum to the live rows, and
+    each shard's entry point is live exactly when the shard has nodes."""
+    problems = []
+    counts = [int(st.count) for st in vc.idx.states]
+    if sum(counts) != n_live:
+        problems.append(f"{cname}: node count {sum(counts)} != live rows {n_live}")
+    for s, st in enumerate(vc.idx.states):
+        ep = int(st.entry_point)
+        if counts[s] > 0:
+            if ep < 0:
+                problems.append(f"{cname}: shard {s} missing entry point")
+            elif int(st.levels[ep]) < 0:
+                problems.append(f"{cname}: shard {s} entry point {ep} is not live")
+        elif ep >= 0:
+            problems.append(f"{cname}: shard {s} entry point set on empty index")
+    return problems
