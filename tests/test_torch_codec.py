@@ -143,7 +143,8 @@ def test_host_modules_match_jax(name):
 
 def test_timing_records_insert_stages(tmp_path):
     """With timing enabled, insert_batch adds each stage's time to its
-    timer; disabled, nothing is recorded. trace() writes a Chrome trace."""
+    timer and counters add up; disabled, nothing is recorded. trace()
+    writes a Chrome trace."""
     cfg = config_for(32, cap=128)
     x = prepare_vectors(cfg, np.random.default_rng(1).standard_normal((40, 32)), device="cpu")
     timing.reset()
@@ -153,7 +154,8 @@ def test_timing_records_insert_stages(tmp_path):
         timing.enable()
         with timing.trace(str(tmp_path / "trace.json")):
             build_graph(cfg, x, max_batch=16, device="cpu")
-        timing.add("extra", 0.5, count=2)
+        timing.count("extra", 2)
+        timing.count("extra", 3)
         stats = timing.stats()
     finally:
         timing.disable()
@@ -162,5 +164,5 @@ def test_timing_records_insert_stages(tmp_path):
     for stage in ("write", "candidates", "upper", "connect"):
         total, calls = stats[f"insert.{stage}"]
         assert calls == n_batches and total > 0
-    assert stats["extra"] == (0.5, 2)
+    assert stats["extra"] == (5, 2)
     assert "traceEvents" in json.loads((tmp_path / "trace.json").read_text())

@@ -32,6 +32,7 @@ import torch
 from tpuvec_torch.index.graph import GraphState, HnswConfig
 from tpuvec_torch.ops.beam import beam_loop, frontier, node_dist
 from tpuvec_torch.ops.distance import internal_to_output
+from tpuvec_torch.utils import timing
 
 __all__ = [
     "search_graph", "search", "descend_to_level1", "beam_search_level0",
@@ -62,26 +63,53 @@ def descend_to_level1(
     Returns (cur [B] i32, cur_d [B] f32): the best node found per query,
     used to seed the level-0 beam. The entry level is read to the host
     once per call, and whether any query moved once per step: a level
-    above the entry level runs no step.
+    above the entry level runs no step. Traced (``utils/timing.py``), the
+    call is span ``search.descent``, each host read a
+    ``search.descent.sync``, and its steps are counted (``_count_steps``).
     """
-    b = q.shape[0]
-    cur = state.entry_point.expand(b).clone()
-    cur_d = _node_dist(config, state, q, cur[:, None])[:, 0]
-    top = min(config.lu, int(state.entry_level))
-    m = config.m
-    for lev in range(top, 0, -1):
-        for _ in range(max_steps):
-            slots = state.upper_slot[cur.clamp_min(0)]
-            nbrs = state.upper_adj[slots.clamp_min(0), (lev - 1) * m : lev * m]
-            nbrs = torch.where(slots[:, None] >= 0, nbrs, -1)
-            nd = _node_dist(config, state, q, nbrs)
-            bd, best = torch.min(nd, dim=1)
-            move = bd < cur_d
-            cur = torch.where(move, torch.gather(nbrs, 1, best[:, None])[:, 0], cur)
-            cur_d = torch.where(move, bd, cur_d)
-            if not bool(move.any()):
-                break
-    return cur, cur_d
+    with timing.span("search.descent"):
+        b = q.shape[0]
+        cur = state.entry_point.expand(b).clone()
+        cur_d = _node_dist(config, state, q, cur[:, None])[:, 0]
+        with timing.span("search.descent.sync"):
+            top = min(config.lu, int(state.entry_level))
+        m = config.m
+        traced = timing.enabled()
+        moves = []  # traced: each step's move mask, counted after the last
+        for lev in range(top, 0, -1):
+            for _ in range(max_steps):
+                slots = state.upper_slot[cur.clamp_min(0)]
+                nbrs = state.upper_adj[slots.clamp_min(0), (lev - 1) * m : lev * m]
+                nbrs = torch.where(slots[:, None] >= 0, nbrs, -1)
+                nd = _node_dist(config, state, q, nbrs)
+                bd, best = torch.min(nd, dim=1)
+                move = bd < cur_d
+                cur = torch.where(move, torch.gather(nbrs, 1, best[:, None])[:, 0], cur)
+                cur_d = torch.where(move, bd, cur_d)
+                if traced:
+                    moves.append(move)
+                    with timing.span("search.descent.sync"):
+                        moving = bool(move.any())
+                else:
+                    moving = bool(move.any())
+                if not moving:
+                    break
+        if moves:
+            _count_steps(moves)
+        return cur, cur_d
+
+
+def _count_steps(moves: list) -> None:
+    """Count a traced descent's steps, once a call: ``descent.steps`` + S,
+    ``descent.query_steps`` + S B and ``descent.moved`` + the queries the
+    S steps moved. The moved counts are read in one host wait after the
+    last step (a ``search.descent.sync``): reading a count in each step's
+    wait, in place of ``move.any()``, doubles that wait's host time."""
+    with timing.span("search.descent.sync"):
+        moved = int(torch.stack(moves).sum())
+    timing.count("descent.steps", len(moves))
+    timing.count("descent.query_steps", len(moves) * moves[0].shape[0])
+    timing.count("descent.moved", moved)
 
 
 def beam_search_level0(
@@ -175,19 +203,21 @@ def search_graph(
     index -> (inf, -1). ef defaults to max(ef_search, k).
     ``filter_mask`` [cap] bool restricts the results (not the traversal)
     to mask-passing nodes; slots past the ones found are (inf, -1).
+    Traced, the call is span ``search`` (a root opens a request).
     """
-    ef = max(ef or config.ef_search, k)
-    if max_iters is None:
-        max_iters = default_max_iters(ef, n_expand)
-    seed_ids, seed_d = descend_to_level1(config, state, q)
-    beam_d, beam_i, _ = beam_search_level0(
-        config, state, q, seed_ids, seed_d,
-        ef=ef, max_iters=max_iters, n_expand=n_expand, node_mask=filter_mask, k_out=k,
-    )
-    empty = state.entry_point < 0
-    out_d = torch.where(empty, _INF, beam_d[:, :k])
-    out_i = torch.where(empty, -1, beam_i[:, :k])
-    return out_d, out_i
+    with timing.span("search"):
+        ef = max(ef or config.ef_search, k)
+        if max_iters is None:
+            max_iters = default_max_iters(ef, n_expand)
+        seed_ids, seed_d = descend_to_level1(config, state, q)
+        beam_d, beam_i, _ = beam_search_level0(
+            config, state, q, seed_ids, seed_d,
+            ef=ef, max_iters=max_iters, n_expand=n_expand, node_mask=filter_mask, k_out=k,
+        )
+        empty = state.entry_point < 0
+        out_d = torch.where(empty, _INF, beam_d[:, :k])
+        out_i = torch.where(empty, -1, beam_i[:, :k])
+        return out_d, out_i
 
 
 def search(

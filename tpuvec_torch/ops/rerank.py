@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from tpuvec_torch.types import DistanceMetric
+from tpuvec_torch.utils import timing
 
 __all__ = ["rerank_topk", "expand_rerank_topk"]
 
@@ -46,7 +47,8 @@ def _exact_dists(shadow, slots, ok, qf, metric: DistanceMetric):
 
 
 def _exact_dists_block(shadow, slots, ok, qf, metric: DistanceMetric):
-    corpus = shadow[slots.clamp_min(0)].to(torch.float32)  # [B, C, D]
+    with timing.span("rerank.gather", device=shadow):
+        corpus = shadow[slots.clamp_min(0)].to(torch.float32)  # [B, C, D]
     qf = qf.to(torch.float32)
     if metric is DistanceMetric.L2:
         diff = corpus - qf[:, None, :]
@@ -86,9 +88,12 @@ def rerank_topk(
     """Exact top-k over gathered candidates in the output metric.
 
     Returns (dists [B, k] ascending in the user metric, slots [B, k]).
+    Traced (``utils/timing.py``), the call is span ``rerank.topk`` and each
+    chunk's gather a device span ``rerank.gather``.
     """
-    dd = _exact_dists(shadow, slots, ok, qf, metric)
-    return _smallest(dd, slots, k)
+    with timing.span("rerank.topk"):
+        dd = _exact_dists(shadow, slots, ok, qf, metric)
+        return _smallest(dd, slots, k)
 
 
 def _dedup_smallest(dd, ids, k: int):

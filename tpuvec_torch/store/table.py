@@ -636,7 +636,7 @@ class VecTable:
         unbounded batch into a small graph would leave nodes isolated), at
         most 256 rows each. Each batch's upper stage is capped as for the
         JAX package's padded width, 16 or 256."""
-        with self._lock, timing.timer("table.flush"):
+        with self._lock, timing.request(), timing.span("table.flush"):
             if not self._pending:
                 return
             pend = self._pending
@@ -891,7 +891,7 @@ class VecTable:
         filtered HNSW search, falling back to the exact scan when a query
         comes back short; else the HNSW search.
         """
-        with self._lock, timing.timer("table.knn"):
+        with self._lock, timing.request(), timing.span("table.knn"):
             self.flush()
             if column not in self.vector_cols:
                 raise InvalidParameter(f"'{column}' is not a vector column")
